@@ -1,0 +1,247 @@
+"""OCR in PyTorch: DBNet-style text detector + CTC line recogniser.
+
+  * detector: 4-stage conv backbone -> FPN merge at 1/4 scale -> 1-channel
+    probability map at 1/2 scale (threshold + component boxes);
+  * recogniser: conv stack collapsing height, transformer encoder over the
+    width axis, CTC head over a 96-char english charset; greedy decode.
+
+Modules are NCHW and their attribute names follow the JAX package's
+auto-numbered parameter tree (``_ConvBlock_0``, ``Conv_0``, ``attn_0``
+...), so that ``weights/convert.py`` carries weights over by name.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from omniparser_tpu_torch.config import OcrConfig
+from omniparser_tpu_torch.ops.components import device_components, quantize_u8_parity
+from omniparser_tpu_torch.ops.preprocess import letterbox
+
+# charset: CTC blank at index 0
+CHARSET = (
+    " 0123456789abcdefghijklmnopqrstuvwxyz"
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    "!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~"
+)
+NUM_CLASSES = len(CHARSET) + 1  # + blank
+
+LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
+
+
+def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Zero-pad H and W as XLA's 'SAME' does: total = max((ceil(n/s)-1)*s +
+    k - n, 0), the smaller half first — with stride 2 on an even size that
+    is nothing before and one after."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):  # F.pad takes the last dim first
+        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+def layer_norm_f32(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm over the last dim computed in float32."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+
+
+class _ConvBlock(nn.Module):
+    """3x3 conv ('SAME', no bias) + BatchNorm (float32) + ReLU."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.Conv_0 = nn.Conv2d(cin, features, 3, stride, 0, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
+
+    def forward(self, x):
+        y = self.Conv_0(same_pad(x, 3, self.stride))
+        return F.relu(self.BatchNorm_0(y.float())).to(x.dtype)
+
+
+def _up_to(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Bilinear resize to ref's H, W with half-pixel centres."""
+    return F.interpolate(t.float(), size=ref.shape[-2:], mode="bilinear",
+                         align_corners=False).to(t.dtype)
+
+
+class TextDetector(nn.Module):
+    """Segmentation net: [B,3,S,S] -> [B,1,S/2,S/2] probability map."""
+
+    def __init__(self, width: int = 32, out_scale: int = 2):
+        super().__init__()
+        w = width
+        self.out_scale = out_scale
+        chans = [(3, w, 2), (w, w, 1), (w, 2 * w, 2), (2 * w, 2 * w, 1),
+                 (2 * w, 4 * w, 2), (4 * w, 4 * w, 1), (4 * w, 8 * w, 2),
+                 (8 * w, 8 * w, 1), (6 * w, 2 * w, 1), (2 * w, w, 1)]
+        for i, (cin, cout, s) in enumerate(chans):
+            setattr(self, f"_ConvBlock_{i}", _ConvBlock(cin, cout, s))
+        self.Conv_0 = nn.Conv2d(8 * w, 2 * w, 1)
+        self.Conv_1 = nn.Conv2d(4 * w, 2 * w, 1)
+        self.Conv_2 = nn.Conv2d(2 * w, 2 * w, 1)
+        self.Conv_3 = nn.Conv2d(w, 1, 1)  # stays float32 (see cast_compute_dtype)
+
+    def forward(self, x):
+        blk = lambda i: getattr(self, f"_ConvBlock_{i}")
+        x = x.to(self.Conv_0.weight.dtype)
+        c1 = blk(1)(blk(0)(x))   # 1/2
+        c2 = blk(3)(blk(2)(c1))  # 1/4
+        c3 = blk(5)(blk(4)(c2))  # 1/8
+        c4 = blk(7)(blk(6)(c3))  # 1/16
+        # FPN merge at 1/4
+        p4 = self.Conv_0(c4)
+        p3 = self.Conv_1(c3) + _up_to(p4, c3)
+        p2 = self.Conv_2(c2) + _up_to(p3, c2)
+        feat = torch.cat([p2, _up_to(p3, c2), _up_to(p4, c2)], dim=1)
+        feat = blk(8)(feat)
+        # head at 1/2: upsample fused features, one refining conv
+        feat = blk(9)(_up_to(feat, c1))
+        return torch.sigmoid(self.Conv_3(feat.float()))
+
+
+class _SelfAttention(nn.Module):
+    """Multi-head self-attention with flax MultiHeadDotProductAttention's
+    parameters: query/key/value/out projections with bias."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        b, t, d = x.shape
+        hd = d // self.heads
+        split = lambda y: y.reshape(b, t, self.heads, hd).transpose(1, 2)
+        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        attn = (q / math.sqrt(hd)) @ k.transpose(-1, -2)
+        attn = torch.softmax(attn, dim=-1)
+        y = (attn @ v).transpose(1, 2).reshape(b, t, d)
+        return self.out(y)
+
+
+class TextRecognizer(nn.Module):
+    """CTC line recogniser: [B, 3, 32, W] -> [B, W/4, NUM_CLASSES] logits.
+    `seq_len` (= W/4) sizes the learned position embedding."""
+
+    def __init__(self, width: int = 64, layers: int = 2, heads: int = 4,
+                 seq_len: int = 120):
+        super().__init__()
+        w = width
+        self.layers = layers
+        self._ConvBlock_0 = _ConvBlock(3, w)
+        self._ConvBlock_1 = _ConvBlock(w, 2 * w)
+        self._ConvBlock_2 = _ConvBlock(2 * w, 4 * w)
+        self._ConvBlock_3 = _ConvBlock(4 * w, 4 * w)
+        d = 4 * w
+        self.pos_embed = nn.Parameter(torch.zeros(1, seq_len, d))
+        for i in range(layers):
+            setattr(self, f"ln1_{i}", nn.LayerNorm(d, eps=LN_EPS))
+            setattr(self, f"attn_{i}", _SelfAttention(d, heads))
+            setattr(self, f"ln2_{i}", nn.LayerNorm(d, eps=LN_EPS))
+            setattr(self, f"mlp_in_{i}", nn.Linear(d, 4 * d))
+            setattr(self, f"mlp_out_{i}", nn.Linear(4 * d, d))
+        self.ln_f = nn.LayerNorm(d, eps=LN_EPS)
+        self.ctc_head = nn.Linear(d, NUM_CLASSES)  # stays float32
+
+    def forward(self, x):
+        dt = self.pos_embed.dtype
+        x = x.to(dt)
+        x = F.max_pool2d(self._ConvBlock_0(x), 2, 2)            # 16 x W/2
+        x = F.max_pool2d(self._ConvBlock_1(x), 2, 2)            # 8 x W/4
+        x = F.max_pool2d(self._ConvBlock_2(x), (2, 1), (2, 1))  # 4 x W/4
+        x = F.max_pool2d(self._ConvBlock_3(x), (4, 1), (4, 1))  # 1 x W/4
+        h = x.squeeze(2).transpose(1, 2) + self.pos_embed       # [B, T, C]
+        for i in range(self.layers):
+            a = layer_norm_f32(h, getattr(self, f"ln1_{i}")).to(dt)
+            h = h + getattr(self, f"attn_{i}")(a)
+            m = layer_norm_f32(h, getattr(self, f"ln2_{i}")).to(dt)
+            m = getattr(self, f"mlp_in_{i}")(m)
+            m = F.gelu(m, approximate="tanh")
+            h = h + getattr(self, f"mlp_out_{i}")(m)
+        return self.ctc_head(layer_norm_f32(h, self.ln_f))
+
+
+def ctc_device_stats(logits: torch.Tensor):
+    """CTC statistics for a batch: logits [M, T, C] -> (argmax ids [M, T]
+    int32, mean char confidence [M], char count [M]).  Repeats and blanks
+    are dropped as in a greedy CTC decode, so the confidence threshold can
+    gate OCR boxes on the device; the string is assembled on the host."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    maxp, ids = probs.max(dim=-1)
+    ids = ids.to(torch.int32)
+    prev = torch.cat([torch.full_like(ids[:, :1], -1), ids[:, :-1]], dim=1)
+    char_mask = (ids != 0) & (ids != prev)
+    n_chars = char_mask.sum(dim=1).to(torch.int32)
+    conf = torch.where(
+        n_chars > 0,
+        (maxp * char_mask).sum(dim=1) / torch.clamp(n_chars, min=1),
+        torch.zeros_like(maxp[:, 0]),
+    )
+    return ids, conf, n_chars
+
+
+def ids_to_text(ids_row, charset: str = CHARSET) -> str:
+    """Host: collapse an argmax id row to its CTC string."""
+    chars, prev = [], -1
+    for i in np.asarray(ids_row):
+        if i != prev and i != 0:
+            chars.append(charset[i - 1])
+        prev = i
+    return "".join(chars)
+
+
+class TorchOCR:
+    """The first-party OCR backend: both nets, the fused letterbox +
+    detector + components step, and the recogniser's preprocessing."""
+
+    def __init__(self, config: OcrConfig, device="cuda", det_state=None,
+                 rec_state=None, generator: Optional[torch.Generator] = None):
+        from omniparser_tpu_torch.weights.init import build_module
+
+        if config.arch != "native":
+            raise NotImplementedError(f"OCR arch {config.arch!r} is not ported")
+        self.config = config
+        self.device = torch.device(device)
+        self.charset = CHARSET
+        dtype = getattr(torch, config.dtype)
+        self.det = build_module(TextDetector(), det_state, generator, dtype, self.device,
+                                keep_f32=("Conv_3",))
+        self.rec = build_module(
+            TextRecognizer(seq_len=config.rec_max_width // 4), rec_state, generator,
+            dtype, self.device, keep_f32=("ctc_head",))
+
+    def rec_preprocess(self, crops_f255: torch.Tensor) -> torch.Tensor:
+        """[N,H,W,3] float crops in [0,255] -> recogniser input [N,3,H,W]."""
+        return (crops_f255 / 255.0).permute(0, 3, 1, 2)
+
+    def decode_ids(self, ids_row) -> str:
+        return ids_to_text(ids_row, self.charset)
+
+    @torch.no_grad()
+    def det_cc_full(self, padded: torch.Tensor, hw, max_cc: int = 1024):
+        """Letterbox + detector + connected components.  The map is rounded
+        to the uint8 grid first so thresholds see k/255 values."""
+        img, _r, _pads = letterbox(padded, hw, self.config.det_imgsz)
+        prob = torch.clamp(self.det(img.permute(2, 0, 1)[None])[0, 0].float(), 0.0, 1.0)
+        return device_components(quantize_u8_parity(prob), 0.3, 0.3, min_area=4,
+                                 max_out=max_cc, pre_cap=max_cc)
+
+    def dispatch_det(self, padded: torch.Tensor, hw_host):
+        """(component dict on the device, r, (pad_y, pad_x)).  The letterbox
+        parameters are closed-form host math (Python floats)."""
+        cc = self.det_cc_full(padded, hw_host)
+        s = self.config.det_imgsz
+        uh, uw = hw_host
+        r = min(s / uh, s / uw)
+        pads = ((s - uh * r) / 2.0, (s - uw * r) / 2.0)
+        return cc, r, pads

@@ -1,0 +1,144 @@
+"""The suppression kernels: greedy NMS keep mask and the merge matrices.
+
+Each wrapper launches its hand-written CUDA kernel (``csrc/nms.cu``,
+``csrc/overlap.cu``) for CUDA tensors and takes the plain PyTorch version
+beside it for CPU tensors, and only for those: on a CUDA tensor it
+launches or raises.  ``launch_counts`` rises by one where a kernel is
+launched, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from omniparser_tpu_torch.ops import cuda_build
+from omniparser_tpu_torch.ops.boxes import (
+    box_area,
+    containment_ratio,
+    pairwise_intersection,
+    pairwise_max_overlap_ratio,
+)
+
+_INSIDE_THRESHOLD = 0.80
+
+launch_counts: Dict[str, int] = {"nms_keep": 0, "overlap_matrices": 0}
+
+_MAX_NMS_N = 65536  # the scan's bit words must fit static shared memory
+
+
+def _check_boxes(t: torch.Tensor, name: str) -> None:
+    if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 4:
+        raise ValueError(f"{name}: want float32 [N,4], got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.is_cuda and t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+# ------------------------------------------------------------------ #
+# Greedy NMS
+# ------------------------------------------------------------------ #
+
+
+def plain_pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
+    """Symmetric IoU without the containment ratios (torchvision semantics):
+    0 where the union is 0."""
+    inter = pairwise_intersection(boxes, boxes)
+    area = box_area(boxes)
+    union = area[:, None] + area[None, :] - inter
+    one = torch.ones((), dtype=union.dtype, device=union.device)
+    zero = torch.zeros((), dtype=union.dtype, device=union.device)
+    return torch.where(union > 0, inter / torch.where(union == 0, one, union), zero)
+
+
+def nms_keep_plain(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
+                   iou_threshold: float) -> torch.Tensor:
+    """Plain PyTorch greedy NMS keep mask over score-sorted boxes: if box i
+    survives, every later box j with IoU(i, j) > threshold is dropped.
+    Returns the FULL keep mask [N] bool."""
+    n = sorted_boxes.shape[0]
+    over = plain_pairwise_iou(sorted_boxes) > iou_threshold
+    over = torch.triu(over, diagonal=1)  # only later boxes
+    keep = sorted_valid.clone()
+    for i in range(n):
+        # no host read of keep[i]: the row is applied under its condition
+        keep = keep & ~(over[i] & keep[i])
+    return keep
+
+
+def nms_keep(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
+             iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask for score-sorted boxes (exact torchvision
+    semantics).  sorted_boxes [N,4] float32 descending by score,
+    sorted_valid [N] bool.  Returns keep [N] bool, the full greedy mask."""
+    _check_boxes(sorted_boxes, "sorted_boxes")
+    n = sorted_boxes.shape[0]
+    if sorted_valid.dtype != torch.bool or sorted_valid.shape != (n,):
+        raise ValueError(f"sorted_valid: want bool [{n}], got "
+                         f"{sorted_valid.dtype} {tuple(sorted_valid.shape)}")
+    if sorted_valid.device != sorted_boxes.device or not sorted_valid.is_contiguous():
+        raise ValueError("sorted_valid: must be contiguous and on the boxes' device")
+    if not sorted_boxes.is_cuda:
+        return nms_keep_plain(sorted_boxes, sorted_valid, float(iou_threshold))
+    if not 0 < n <= _MAX_NMS_N:
+        raise ValueError(f"nms_keep: N={n} outside (0, {_MAX_NMS_N}]")
+    lib = cuda_build.load("nms.cu")
+    fn = lib.nms_keep_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cb = (n + 63) // 64
+    keep = torch.empty((n,), dtype=torch.bool, device=sorted_boxes.device)
+    mask = torch.empty((n * cb,), dtype=torch.int64, device=sorted_boxes.device)
+    with torch.cuda.device(sorted_boxes.device):
+        err = fn(sorted_boxes.data_ptr(), sorted_valid.data_ptr(), keep.data_ptr(),
+                 mask.data_ptr(), n, float(iou_threshold), cuda_build.current_stream())
+    launch_counts["nms_keep"] += 1
+    cuda_build.check(err, "nms_keep")
+    return keep
+
+
+# ------------------------------------------------------------------ #
+# Merge matrices
+# ------------------------------------------------------------------ #
+
+
+def overlap_matrices_plain(icon_boxes: torch.Tensor, ocr_boxes: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch (ratio [N,N] f32, a [N,M] bool, b [N,M] bool):
+    ratio = max-overlap ratio between icons; a[i,k]: OCR k sits more than
+    0.80 inside icon i; b[i,k]: icon i sits more than 0.80 inside OCR k."""
+    ratio = pairwise_max_overlap_ratio(icon_boxes, icon_boxes)
+    a = containment_ratio(ocr_boxes, icon_boxes).T > _INSIDE_THRESHOLD
+    b = containment_ratio(icon_boxes, ocr_boxes) > _INSIDE_THRESHOLD
+    return ratio, a, b
+
+
+def overlap_matrices(icon_boxes: torch.Tensor, ocr_boxes: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch -> (ratio [N,N] f32, a [N,M] bool, b [N,M] bool)."""
+    _check_boxes(icon_boxes, "icon_boxes")
+    _check_boxes(ocr_boxes, "ocr_boxes")
+    if icon_boxes.device != ocr_boxes.device:
+        raise ValueError("icon_boxes and ocr_boxes must share a device")
+    if not icon_boxes.is_cuda:
+        return overlap_matrices_plain(icon_boxes, ocr_boxes)
+    n, m = icon_boxes.shape[0], ocr_boxes.shape[0]
+    lib = cuda_build.load("overlap.cu")
+    fn = lib.overlap_matrices_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = icon_boxes.device
+    ratio = torch.empty((n, n), dtype=torch.float32, device=dev)
+    a = torch.empty((n, m), dtype=torch.bool, device=dev)
+    b = torch.empty((n, m), dtype=torch.bool, device=dev)
+    if n == 0:
+        return ratio, a, b
+    with torch.cuda.device(dev):
+        err = fn(icon_boxes.data_ptr(), ocr_boxes.data_ptr(), ratio.data_ptr(),
+                 a.data_ptr(), b.data_ptr(), n, m, cuda_build.current_stream())
+    launch_counts["overlap_matrices"] += 1
+    cuda_build.check(err, "overlap_matrices")
+    return ratio, a, b

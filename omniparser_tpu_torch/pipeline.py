@@ -1,0 +1,640 @@
+"""The screenshot -> structured-elements pipeline, in PyTorch.
+
+    host:   decode -> pad -> upload (1 host->device transfer)
+    device: letterbox -> OCR text-detector -> connected components
+            (output STAYS on the device)
+    device: [fused step] candidate unclip/unmap -> YOLO detect + NMS ->
+            OCR line recogniser + CTC stats -> overlap/merge masks ->
+            caption-slot compaction -> crop-gather  (-> ONE download)
+    device: Florence greedy decode over the smallest power-of-2 slot
+            bucket that covers the content-less icons
+    host:   strings, SOM overlay, JSON
+
+Eager PyTorch has no compiled graph: the fused step is one plain function
+whose kernels queue on the current stream; the host reads a device value
+only where control flow needs it (the label propagation's fixed point, the
+recogniser's block count) and at the download.
+
+Element schema and ordering match the reference exactly:
+  {'type': 'text'|'icon', 'bbox': [x1,y1,x2,y2] normalised, 'interactivity',
+   'content', 'source': 'box_ocr_content_ocr'|'box_yolo_content_ocr'|
+   'box_yolo_content_yolo'}
+with content-less icons sorted last and captioned in order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+import warnings
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from omniparser_tpu_torch.config import PipelineConfig
+from omniparser_tpu_torch.models.ocr import TorchOCR, ctc_device_stats
+from omniparser_tpu_torch.models.yolov8 import Detector
+from omniparser_tpu_torch.ops.boxes import int_box_area
+from omniparser_tpu_torch.ops.components import candidate_boxes_from_cc
+from omniparser_tpu_torch.ops.overlap import merge_icons_and_ocr
+from omniparser_tpu_torch.ops.preprocess import (
+    crop_lines_batch,
+    crop_resize_batch,
+    pad_to_bucket,
+    pick_bucket_2d,
+)
+
+EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights", "exported")
+
+
+class NullCaptioner:
+    """Placeholder captioner: labels every icon 'icon'."""
+
+    fusable = False
+
+    def caption_crops(self, crops, valid) -> List[str]:
+        return ["icon" for _ in range(int(np.asarray(valid).sum()))]
+
+
+def _make_element(typ, bbox, interactivity, content, source) -> Dict:
+    return {
+        "type": typ,
+        "bbox": [float(v) for v in bbox],
+        "interactivity": interactivity,
+        "content": content,
+        "source": source,
+    }
+
+
+class _Stopwatch:
+    """Per-stage milliseconds; on a CUDA device each lap ends with a
+    synchronise, so it is off unless a caller asks for stage times."""
+
+    def __init__(self, sink: Optional[Dict[str, float]], device: torch.device):
+        self.sink, self.device = sink, device
+        self.t0 = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.sink is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.sink[name] = self.sink.get(name, 0.0) + (now - self.t0) * 1e3
+        self.t0 = now
+
+
+@torch.no_grad()
+def fused_parse_step(cfg: PipelineConfig, detector: Detector, det_module,
+                     ocr: Optional[TorchOCR], do_cap: bool,
+                     padded: torch.Tensor, hw: Tuple[int, int], true_hw: Tuple[int, int],
+                     ocr_a: torch.Tensor, ocr_b: torch.Tensor, lb_r, lb_pads,
+                     conf_thr: float, nms_iou: float, merge_iou: float, text_thr: float,
+                     device_candidates: bool,
+                     stage_ms: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
+    """The device step between the OCR detector and the caption decode.
+
+    hw: the uploaded (possibly downscaled) frame, drives geometry; true_hw:
+    the ORIGINAL dims — the zero-area gate is evaluated at original
+    resolution.  ocr_a/ocr_b: with device_candidates the detector's
+    component boxes [C,4] and count (still on the device) plus this
+    image's letterbox lb_r/lb_pads; otherwise (boxes_norm, valid).
+    """
+    dev = padded.device
+    watch = _Stopwatch(stage_ms, dev)
+    h, w = true_hw
+    max_ocr = cfg.ocr.max_text_boxes
+    ocr_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if device_candidates:
+        ocr_boxes_norm, ocr_cand_valid, ocr_overflow = candidate_boxes_from_cc(
+            ocr_a, ocr_b, lb_r, lb_pads, hw, max_boxes=max_ocr)
+    else:
+        ocr_boxes_norm, ocr_cand_valid = ocr_a, ocr_b
+    watch.lap("candidates")
+
+    det_boxes, det_scores, det_valid, det_overflow = detector.detect_graph(
+        det_module, padded, hw, conf_thr, nms_iou, with_stats=True)
+    det_valid = det_valid & (int_box_area(det_boxes, w, h) > 0)
+    watch.lap("detect_nms")
+
+    M = ocr_boxes_norm.shape[0]
+    if ocr is not None:
+        rec_hw = (cfg.ocr.rec_height, cfg.ocr.rec_max_width)
+        blk = cfg.ocr.rec_block
+
+        def recognise(boxes_b):
+            crops = crop_lines_batch(padded, hw, boxes_b.contiguous(), rec_hw)
+            return ctc_device_stats(ocr.rec(ocr.rec_preprocess(crops)))
+
+        if blk and M % blk == 0 and M // blk > 1:
+            # block-looped recognition: the trip count is the real
+            # candidate count's (one host read of a device scalar), so the
+            # cost follows the screenshot's text density, not the slot cap.
+            # Invalid slots keep all-blank ids (id 0) => n_chars 0.
+            n_valid = torch.where(
+                ocr_cand_valid, torch.arange(M, dtype=torch.int32, device=dev) + 1,
+                torch.zeros((), dtype=torch.int32, device=dev)).max()
+            n_blocks = (int(n_valid) + blk - 1) // blk
+            T = ocr.rec.pos_embed.shape[1]
+            rec_ids = torch.zeros((M, T), dtype=torch.int32, device=dev)
+            rec_conf = torch.zeros((M,), dtype=torch.float32, device=dev)
+            n_chars = torch.zeros((M,), dtype=torch.int32, device=dev)
+            for i in range(n_blocks):
+                s = i * blk
+                ids_b, conf_b, nch_b = recognise(ocr_boxes_norm[s:s + blk])
+                rec_ids[s:s + blk] = ids_b
+                rec_conf[s:s + blk] = conf_b
+                n_chars[s:s + blk] = nch_b
+        else:
+            rec_ids, rec_conf, n_chars = recognise(ocr_boxes_norm)
+        ocr_valid = ocr_cand_valid & (n_chars > 0) & (rec_conf > text_thr)
+    else:
+        rec_ids = torch.zeros((M, 1), dtype=torch.int32, device=dev)
+        rec_conf = torch.zeros((M,), dtype=torch.float32, device=dev)
+        ocr_valid = ocr_cand_valid
+    ocr_valid = ocr_valid & (int_box_area(ocr_boxes_norm, w, h) > 0)
+    watch.lap("recognise")
+
+    res = merge_icons_and_ocr(det_boxes, det_valid, ocr_boxes_norm, ocr_valid, merge_iou)
+    out = {
+        "det_boxes": det_boxes,
+        "det_scores": det_scores,
+        "det_valid": det_valid,
+        "det_overflow": det_overflow,
+        "icon_keep": res.icon_keep,
+        "ocr_keep": res.ocr_keep,
+        "absorb": res.absorb,
+        "ocr_valid": ocr_valid,
+        "rec_ids": rec_ids,
+        "rec_conf": rec_conf,
+    }
+    if device_candidates:
+        # the host never saw the candidate boxes — ship them in the single
+        # download (plus the cap counter: no silent caps)
+        out["ocr_boxes"] = ocr_boxes_norm
+        out["ocr_cand_valid"] = ocr_cand_valid
+        out["ocr_overflow"] = ocr_overflow
+    watch.lap("merge")
+
+    if do_cap:
+        K = cfg.captioner.batch_size
+        n = det_boxes.shape[0]
+        need = res.icon_keep & ~res.absorb.any(dim=1)
+        rank = torch.cumsum(need.to(torch.int64), 0) - 1
+        # slots beyond K scatter to a spare last slot that is cut
+        dest = torch.where(need & (rank < K), rank, torch.full_like(rank, K))
+        cap_boxes = torch.zeros((K + 1, 4), dtype=det_boxes.dtype, device=dev)
+        cap_boxes[dest] = det_boxes
+        cap_valid = torch.zeros((K + 1,), dtype=torch.bool, device=dev)
+        cap_valid[dest] = need
+        cap_src = torch.full((K + 1,), -1, dtype=torch.int32, device=dev)
+        cap_src[dest] = torch.arange(n, dtype=torch.int32, device=dev)
+        cap_valid, cap_src = cap_valid[:K], cap_src[:K]
+        out["crops"] = crop_resize_batch(padded, hw, cap_boxes[:K].contiguous(),
+                                         cfg.captioner.crop_size)
+        out.update(cap_valid=cap_valid, cap_src=cap_src,
+                   cap_overflow=need.sum() - cap_valid.sum())
+        watch.lap("caption_crops")
+    return out
+
+
+def _flat_weights(field: Optional[str], name: str):
+    """A config weight field -> flat variable dict; None (and only None)
+    asks for the seeded init.  'auto' is the exported shipped checkpoint and
+    raises where the export has not been made: untrained networks are never
+    a silent default."""
+    from omniparser_tpu_torch.weights.convert import load_npz
+
+    if field is None:
+        return None
+    if field == "auto":
+        path = os.path.join(EXPORT_DIR, name + ".npz")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"weights 'auto' need {path}: write it with "
+                "`python scripts/export_torch_weights.py`, give the path of an exported "
+                ".npz, or pass None for this weight field to initialise from a seed")
+        return load_npz(path)
+    return load_npz(field)
+
+
+def _sub_tree(flat: Dict, prefix: str) -> Dict:
+    p = prefix + "/"
+    return {k[len(p):]: v for k, v in flat.items() if k.startswith(p)}
+
+
+class SOMPipeline:
+    """End-to-end parse: detector, OCR, merge, captioner.
+
+    device: where everything runs; the default is the card, and a caller
+    that wants the CPU says device="cpu".  Weights: explicit state_dicts
+    (`detector_state`, `ocr_states=(det, rec)`, `captioner_state` with
+    `captioner_dims`), else the config's weight fields: an exported .npz
+    (see weights/convert.py; 'auto' raises where it is missing), or None
+    for a seeded random init.
+    """
+
+    def __init__(self, config: PipelineConfig, device="cuda", *, detector_state=None,
+                 ocr_states=None, captioner_state=None, captioner_dims=None,
+                 captioner=None, seed: int = 0):
+        from omniparser_tpu_torch.weights import convert
+        from omniparser_tpu_torch.weights.init import build_module
+
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but no CUDA device is available; "
+                               "pass device='cpu' to run on the CPU")
+        gen = torch.Generator().manual_seed(seed)
+
+        dc = config.detector
+        if dc.variant.startswith("v9"):
+            raise NotImplementedError("the YOLOv9 family is not ported")
+        self.detector = Detector(variant=dc.variant, num_classes=dc.num_classes,
+                                 imgsz=dc.default_imgsz, max_det=dc.max_detections,
+                                 prefilter=dc.prefilter_topk)
+        if detector_state is None:
+            flat = _flat_weights(config.detector_weights, "det_synth")
+            if flat is not None:
+                detector_state = convert.convert_yolov8(
+                    _sub_tree(flat, "det"), dc.variant, dc.num_classes)
+        self.det_module = build_module(self.detector.make_module(), detector_state, gen,
+                                       getattr(torch, dc.dtype), self.device)
+
+        if config.ocr.backend == "null":
+            self.ocr = None
+        elif config.ocr.backend == "jax":
+            if ocr_states is None:
+                flat = _flat_weights(config.ocr_weights, "ocr_en_synth")
+                if flat is not None:
+                    ocr_states = (
+                        convert.convert_text_detector(_sub_tree(flat, "det")),
+                        convert.convert_text_recognizer(_sub_tree(flat, "rec")))
+            det_s, rec_s = ocr_states if ocr_states is not None else (None, None)
+            self.ocr = TorchOCR(config.ocr, self.device, det_s, rec_s, gen)
+        else:
+            raise NotImplementedError(f"OCR backend {config.ocr.backend!r} is not ported")
+        self._fused_ocr = bool(self.ocr is not None and config.ocr.device_components
+                               and config.ocr.fused_candidates)
+        if self.ocr is not None and not self._fused_ocr:
+            raise NotImplementedError("host-candidate OCR is not ported: keep "
+                                      "device_components and fused_candidates on")
+
+        if captioner is None:
+            backend = config.captioner.backend
+            if not config.use_local_semantics or backend == "null":
+                captioner = NullCaptioner()
+            elif backend == "florence":
+                from omniparser_tpu_torch.models.florence2 import (
+                    BASE, FlorenceCaptioner, FlorenceDims)
+
+                if captioner_state is None:
+                    flat = _flat_weights(config.captioner_weights, "cap_synth")
+                    if flat is not None:
+                        import json
+
+                        raw = json.loads(str(flat.pop("__dims__")))
+                        captioner_dims = FlorenceDims(**{
+                            k: tuple(v) if isinstance(v, list) else v for k, v in raw.items()})
+                        captioner_state = convert.convert_florence2(
+                            _sub_tree(flat, "cap"), captioner_dims)
+                captioner = FlorenceCaptioner(config.captioner, captioner_dims or BASE,
+                                              captioner_state, generator=gen,
+                                              device=self.device)
+            else:
+                raise NotImplementedError(f"captioner backend {backend!r} is not ported")
+        self.captioner = captioner
+        self._florence = captioner if getattr(captioner, "fusable", False) else None
+        if self._florence is not None and not config.captioner.split_decode:
+            raise NotImplementedError("single-step decode is not ported: keep split_decode on")
+        self.last_timings: Dict[str, float] = {}
+        self.last_counts: Dict[str, int] = {}
+        # set to a dict to collect the fused step's per-stage milliseconds
+        # (each stage then ends with a device synchronise)
+        self.stage_ms: Optional[Dict[str, float]] = None
+
+    # ------------------------------------------------------------------ #
+
+    def parse_elements(self, image_rgb: np.ndarray, box_threshold: Optional[float] = None,
+                       iou_threshold: Optional[float] = None
+                       ) -> Tuple[Dict[str, List[float]], List[Dict]]:
+        """np RGB uint8 -> (label_coordinates, element list), no overlay."""
+        ctx = self._run(image_rgb, box_threshold, iou_threshold)
+        return ctx["label_coordinates"], ctx["elements"]
+
+    def parse_image(self, image_rgb: np.ndarray, box_threshold: Optional[float] = None,
+                    iou_threshold: Optional[float] = None, som_style: Optional[Dict] = None
+                    ) -> Tuple[np.ndarray, Dict[str, List[float]], List[Dict]]:
+        """np RGB uint8 -> (annotated RGB, label_coordinates, element list).
+
+        som_style: optional override of the overlay style, with the
+        reference's draw_bbox_config keys (text_scale, text_thickness,
+        text_padding, thickness).
+        """
+        ctx = self._run(image_rgb, box_threshold, iou_threshold)
+        t0 = time.perf_counter()
+        annotated = self._overlay(ctx, som_style)
+        self.last_timings["annotate"] = time.perf_counter() - t0
+        return annotated, ctx["label_coordinates"], ctx["elements"]
+
+    def _run(self, image_rgb, box_threshold, iou_threshold) -> Dict:
+        t: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        ctx = self._stage_upload(image_rgb)
+        t["upload"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if self._fused_ocr:
+            watch = _Stopwatch(self.stage_ms, self.device)
+            ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
+            watch.lap("ocr_detect")
+        t["ocr_detect"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        crops_dev = self._stage_dispatch(ctx, box_threshold, iou_threshold)
+        t["device_step"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._dispatch_decode(ctx, crops_dev)
+        t["decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the element assembly never reads captions, so it runs while the
+        # decode executes on the device; the collect below pays the rest
+        icon_plain = self._stage_finish(ctx)
+        t["assemble"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._collect_decode(ctx)
+        self._fill_captions(ctx, icon_plain)
+        t["decode"] += time.perf_counter() - t0
+        self.last_timings = t
+        return ctx
+
+    # ----------------------------- stages ----------------------------- #
+
+    def _host_pad(self, image_rgb: np.ndarray):
+        """Host half of upload: optional downscale + bucket pad (numpy)."""
+        h, w = image_rgb.shape[:2]
+        upload = image_rgb
+        cap = self.config.max_upload_side
+        if cap and max(h, w) > cap:
+            import cv2
+
+            scale = cap / max(h, w)
+            upload = cv2.resize(image_rgb, (int(w * scale), int(h * scale)),
+                                interpolation=cv2.INTER_AREA)
+        uh, uw = upload.shape[:2]
+        hb, wb = pick_bucket_2d(uh, uw)
+        padded, _ = pad_to_bucket(upload, hb, wb)
+        return padded, upload, h, w, uh, uw
+
+    def _stage_upload(self, image_rgb: np.ndarray) -> Dict:
+        padded, upload, h, w, uh, uw = self._host_pad(image_rgb)
+        return {
+            "image": image_rgb, "h": h, "w": w, "uh": uh, "uw": uw,
+            "upload_img": upload,
+            "padded_dev": torch.from_numpy(padded).to(self.device),  # the one upload
+        }
+
+    def _stage_dispatch(self, ctx: Dict, box_threshold, iou_threshold):
+        """Run the fused step and download everything but the crops."""
+        cfg = self.config
+        box_threshold = cfg.detector.box_threshold if box_threshold is None else box_threshold
+        iou_threshold = cfg.iou_threshold if iou_threshold is None else iou_threshold
+        if self._fused_ocr:
+            cc, r, pads = ctx.pop("ocr_fut")
+            ocr_a, ocr_b = cc["boxes"], cc["count"]
+            ctx["cc_count"] = cc["count"]
+        else:
+            # no OCR: one empty bucket of 32 slots keeps the shapes fixed
+            ocr_a = torch.zeros((32, 4), dtype=torch.float32, device=self.device)
+            ocr_b = torch.zeros((32,), dtype=torch.bool, device=self.device)
+            r, pads = 0.0, (0.0, 0.0)
+        out = fused_parse_step(
+            cfg, self.detector, self.det_module, self.ocr, self._florence is not None,
+            ctx["padded_dev"], (ctx["uh"], ctx["uw"]), (ctx["h"], ctx["w"]),
+            ocr_a, ocr_b, r, pads,
+            box_threshold, cfg.detector.nms_iou_threshold, iou_threshold,
+            cfg.ocr.text_threshold, self._fused_ocr, self.stage_ms)
+        crops_dev = out.pop("crops", None)  # stays on the device
+        if "cc_count" in ctx:
+            out["cc_count"] = ctx.pop("cc_count")
+        ctx["out"] = {k: v.cpu().numpy() for k, v in out.items()}
+        return crops_dev
+
+    def _dispatch_decode(self, ctx: Dict, crops_dev) -> None:
+        """Greedy-decode only the smallest power-of-2 slot bucket (from 8)
+        covering this image's content-less icon count; the compaction in
+        the fused step packed them first.  Zero need => no decode."""
+        ctx["kb"] = 0
+        if crops_dev is None or "cap_valid" not in ctx["out"]:
+            return
+        need = int(ctx["out"]["cap_valid"].sum())
+        if need == 0:
+            return
+        kb = 8
+        while kb < need:
+            kb *= 2
+        kb = min(kb, self.config.captioner.batch_size)
+        ctx["kb"] = kb
+        watch = _Stopwatch(self.stage_ms, self.device)
+        ctx["tokens_fut"] = self._florence.generate(crops_dev[:kb])
+        watch.lap("decode")
+
+    def _collect_decode(self, ctx: Dict) -> None:
+        fut = ctx.pop("tokens_fut", None)
+        if fut is not None:
+            ctx["out"]["cap_tokens"] = fut[0].cpu().numpy()
+            ctx["out"]["cap_logp"] = fut[1].cpu().numpy()
+
+    def _fill_captions(self, ctx: Dict, icon_plain) -> None:
+        """Fill content-less icon elements with captions: decoded tokens
+        for the first K slots; overflow via extra batches."""
+        cfg = self.config
+        out = ctx["out"]
+        det_boxes = out["det_boxes"]
+        plain_elems = [e for _, e in icon_plain]
+        if plain_elems and "cap_tokens" in out:
+            cap = self._florence
+            by_src = {int(s): (tok, lp) for s, tok, lp, v in
+                      zip(out["cap_src"], out["cap_tokens"], out["cap_logp"],
+                          out["cap_valid"]) if v}
+            missing = []
+            for i, e in icon_plain:
+                hit = by_src.get(int(i))
+                if hit is not None:
+                    e["content"] = cap.gate_caption(cap.tokens_to_text(hit[0]), float(hit[1]))
+                else:
+                    missing.append((i, e))
+            if missing:  # > K content-less icons: batch the remainder
+                boxes_extra = np.stack([det_boxes[i] for i, _ in missing]).astype(np.float32)
+                caps = self._caption_boxes(ctx, boxes_extra)
+                for (_, e), c in zip(missing, caps):
+                    e["content"] = c
+        elif plain_elems and cfg.use_local_semantics:
+            for e in plain_elems:
+                e["content"] = "icon"
+        # use_local_semantics=False: icons keep content None
+
+    def _stage_finish(self, ctx: Dict):
+        """Element assembly (host).  Returns the content-less icons as
+        (detector slot, element) pairs for the caption fill."""
+        cfg = self.config
+        h, w = ctx["h"], ctx["w"]
+        out = ctx["out"]
+        if int(out.get("det_overflow", 0)) > 0:
+            # no silent caps: the static NMS window dropped above-threshold
+            # candidates
+            warnings.warn(
+                f"detector prefilter overflow: {int(out['det_overflow'])} "
+                "above-threshold candidates beyond the top-k window "
+                "(raise DetectorConfig.prefilter_topk)", RuntimeWarning)
+        n_ocr = 0
+        ocr_arr = None
+        if "ocr_boxes" in out:  # device-candidate mode: boxes arrive in `out`
+            ocr_arr = out["ocr_boxes"]
+            n_ocr = ocr_arr.shape[0]
+            if int(out.get("ocr_overflow", 0)) > 0:
+                warnings.warn(
+                    f"OCR candidate overflow: {int(out['ocr_overflow'])} "
+                    "text components beyond max_text_boxes slots "
+                    "(raise OcrConfig.max_text_boxes)", RuntimeWarning)
+        texts = {k: self.ocr.decode_ids(out["rec_ids"][k])
+                 for k in range(n_ocr) if out["ocr_valid"][k]}
+
+        elements: List[Dict] = []
+        for k in range(n_ocr):
+            if out["ocr_keep"][k]:
+                elements.append(_make_element(
+                    "text", ocr_arr[k], False, texts.get(k, ""), "box_ocr_content_ocr"))
+        det_boxes = out["det_boxes"]
+        icon_labeled, icon_plain = [], []
+        for i in np.nonzero(out["icon_keep"])[0]:
+            donors = np.nonzero(out["absorb"][i, :n_ocr])[0]
+            if len(donors):
+                content = "".join(texts.get(k, "") + " " for k in donors)
+                icon_labeled.append(_make_element(
+                    "icon", det_boxes[i], True, content, "box_yolo_content_ocr"))
+            else:
+                icon_plain.append((i, _make_element(
+                    "icon", det_boxes[i], True, None, "box_yolo_content_yolo")))
+        elements.extend(icon_labeled)
+        elements.extend(e for _, e in icon_plain)
+
+        cxcywh = self._cxcywh(elements)
+        # label_coordinates always refer to the ORIGINAL frame (xywh px),
+        # independent of the drawing canvas
+        label_coordinates = {
+            str(i): [float(cxcywh[i, 0] - cxcywh[i, 2] / 2) * w,
+                     float(cxcywh[i, 1] - cxcywh[i, 3] / 2) * h,
+                     float(cxcywh[i, 2]) * w, float(cxcywh[i, 3]) * h]
+            for i in range(len(cxcywh))
+        }
+        if cfg.output_coord_in_ratio:
+            label_coordinates = {
+                k: [v[0] / w, v[1] / h, v[2] / w, v[3] / h]
+                for k, v in label_coordinates.items()
+            }
+        ctx["elements"] = elements
+        ctx["label_coordinates"] = label_coordinates
+        self.last_counts = {
+            "det_keep": int(out["det_valid"].sum()),
+            "ocr_components": int(out.get("cc_count", 0)),
+            "ocr_candidates": int(out["ocr_cand_valid"].sum()) if "ocr_cand_valid" in out else 0,
+            "ocr_valid": int(out["ocr_valid"].sum()),
+            "cap_need": int(out["cap_valid"].sum()) if "cap_valid" in out else 0,
+            "kb": int(ctx.get("kb", 0)),
+            "elements": len(elements),
+        }
+        return icon_plain
+
+    @staticmethod
+    def _cxcywh(elements: List[Dict]) -> np.ndarray:
+        b = np.array([e["bbox"] for e in elements], np.float32).reshape(-1, 4)
+        return np.stack([(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2,
+                         b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], axis=1)
+
+    def _overlay(self, ctx: Dict, som_style: Optional[Dict]) -> np.ndarray:
+        """The SOM overlay (cv2 drawing) on top of a finished parse."""
+        from omniparser_tpu_torch.annotate import annotate
+
+        cfg = self.config
+        image_rgb = ctx["image"]
+        h, w = ctx["h"], ctx["w"]
+        canvas = image_rgb
+        if cfg.max_som_side and max(h, w) > cfg.max_som_side:
+            # draw on a downscaled copy; coordinates stay in the original
+            # frame, so only overlay pixels are affected
+            import cv2
+
+            src = image_rgb
+            up = ctx.get("upload_img")
+            if up is not None and max(up.shape[:2]) >= cfg.max_som_side:
+                src = up
+            sh, sw = src.shape[:2]
+            s = cfg.max_som_side / max(sh, sw)
+            canvas = (cv2.resize(src, (int(sw * s), int(sh * s)),
+                                 interpolation=cv2.INTER_AREA) if s < 1.0 else src)
+        ch_, cw_ = canvas.shape[:2]
+        ratio = max(ch_, cw_) / cfg.som_base_resolution
+        style = {
+            "text_scale": cfg.som_text_scale * ratio,
+            "text_thickness": max(int(cfg.som_text_thickness * ratio), 1),
+            "text_padding": max(int(cfg.som_text_padding * ratio), 1),
+            "thickness": max(int(cfg.som_thickness * ratio), 1),
+        }
+        if som_style:
+            style.update(som_style)
+        annotated, _ = annotate(canvas, self._cxcywh(ctx["elements"]), **style)
+        return annotated
+
+    def _caption_boxes(self, ctx: Dict, boxes_norm: np.ndarray) -> List[str]:
+        """Caption overflow batches (rare: > batch_size content-less icons)."""
+        cfg = self.config.captioner
+        bs = cfg.batch_size
+        pad_n = -(-len(boxes_norm) // bs) * bs
+        arr = np.zeros((pad_n, 4), np.float32)
+        arr[: len(boxes_norm)] = boxes_norm
+        valid = np.zeros(pad_n, bool)
+        valid[: len(boxes_norm)] = True
+        out: List[str] = []
+        for s in range(0, pad_n, bs):
+            crops = crop_resize_batch(
+                ctx["padded_dev"], (ctx["uh"], ctx["uw"]),
+                torch.from_numpy(arr[s: s + bs]).to(self.device), cfg.crop_size)
+            out.extend(self.captioner.caption_crops(crops, valid[s: s + bs]))
+        return out
+
+    def content_lines(self, elements) -> List[str]:
+        """'Text Box ID i: ...' / 'Icon Box ID j: ...' lines."""
+        return [f"{'Text' if e['type'] == 'text' else 'Icon'} Box ID {i}: {e['content']}"
+                for i, e in enumerate(elements)]
+
+
+class Omniparser:
+    """Drop-in facade matching the reference: base64 in, (SOM image base64,
+    parsed content list) out."""
+
+    def __init__(self, config, device="cuda", **pipeline_kwargs):
+        if isinstance(config, dict):
+            # the reference's config-dict shape: som_model_path /
+            # caption_model_name / caption_model_path / BOX_TRESHOLD
+            pc = PipelineConfig()
+            name = config.get("caption_model_name", "florence2")
+            if name != "florence2":
+                raise NotImplementedError(f"caption model {name!r} is not ported")
+            config = dataclasses.replace(
+                pc,
+                detector=dataclasses.replace(
+                    pc.detector,
+                    box_threshold=config.get("BOX_TRESHOLD", pc.detector.box_threshold)),
+                detector_weights=config.get("som_model_path"),
+                captioner_weights=config.get("caption_model_path"),
+            )
+        self.config = config
+        self.pipeline = SOMPipeline(config, device, **pipeline_kwargs)
+
+    def parse(self, image_base64: str):
+        from omniparser_tpu_torch.utils.image import decode_base64_image, encode_image_base64
+
+        image = decode_base64_image(image_base64)
+        annotated, _, elements = self.pipeline.parse_image(image)
+        return encode_image_base64(annotated), elements

@@ -1,0 +1,130 @@
+"""Carry the JAX package's variables into this package's ``state_dict``s.
+
+The input is the Flax variable tree **flattened to numpy**:
+``{"params/stem/conv/kernel": array, "batch_stats/stem/bn/mean": array,
+...}`` (``flatten_variables`` makes it from a nested dict of arrays).  The
+PyTorch modules keep the Flax tree's names, so a key maps by its path and
+a leaf by its kind:
+
+  * Conv ``kernel`` HWIO -> ``weight`` OIHW (depthwise included: its I is 1);
+  * Dense ``kernel`` [in, out] -> ``weight`` [out, in];
+  * flax MultiHeadDotProductAttention: query/key/value ``kernel``
+    [in, heads, hd] -> [heads*hd, in], their ``bias`` [heads, hd] ->
+    [heads*hd]; ``out`` ``kernel`` [heads, hd, out] -> [out, heads*hd];
+  * BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` ->
+    ``weight``/``bias``/``running_mean``/``running_var``;
+  * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
+    (the LM head is tied to it in the module, not stored);
+  * bare parameters (position tables, the image projection, the logits
+    bias) keep their name and layout.
+
+Every converter checks the result against the target module: a key the
+module lacks, a key it still needs, or a shape that differs raises with
+the key's path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def flatten_variables(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested mapping of arrays -> flat {"a/b/c": numpy array}."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_variables(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    """Read a flat variable dict written by ``numpy.savez`` (one exported
+    checkpoint; see scripts/export_torch_weights.py)."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+_LEAF = {"scale": "weight", "embedding": "weight", "mean": "running_mean",
+         "var": "running_var"}
+
+
+def _convert_leaf(path: str, parent: str, leaf: str, arr: np.ndarray):
+    if leaf == "kernel":
+        if arr.ndim == 4:  # conv HWIO -> OIHW
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 2:  # dense [in, out] -> [out, in]
+            return "weight", arr.T
+        if arr.ndim == 3:  # attention heads
+            if parent == "out":  # [heads, hd, out]
+                return "weight", arr.reshape(-1, arr.shape[-1]).T
+            return "weight", arr.reshape(arr.shape[0], -1).T  # [in, heads, hd]
+        raise ValueError(f"{path}: kernel of rank {arr.ndim}")
+    if leaf == "bias":
+        return "bias", arr.reshape(-1)
+    return _LEAF.get(leaf, leaf), arr
+
+
+def convert_variables(flat: Mapping[str, np.ndarray], module: nn.Module
+                      ) -> Dict[str, torch.Tensor]:
+    """Flat Flax variables -> state_dict for `module`."""
+    want = {k: v for k, v in module.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in flat.items():
+        parts = path.split("/")
+        if parts[0] not in ("params", "batch_stats"):
+            raise KeyError(f"{path}: unknown collection {parts[0]!r}")
+        parts = parts[1:]
+        parent = parts[-2] if len(parts) > 1 else ""
+        leaf, value = _convert_leaf(path, parent, parts[-1], np.asarray(arr))
+        key = ".".join(parts[:-1] + [leaf])
+        if key not in want:
+            raise KeyError(f"left-over key {path!r}: the module has no {key!r}")
+        if tuple(value.shape) != tuple(want[key].shape):
+            raise ValueError(f"{path}: shape {tuple(value.shape)} after conversion, "
+                             f"the module's {key!r} is {tuple(want[key].shape)}")
+        out[key] = torch.tensor(value, dtype=torch.float32)
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise KeyError(f"missing keys (no variable maps to them): {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
+    return out
+
+
+def _meta(make):
+    with torch.device("meta"):
+        return make()
+
+
+def convert_yolov8(flat, variant: str = "n", num_classes: int = 1):
+    from omniparser_tpu_torch.models.yolov8 import YOLOv8
+
+    return convert_variables(flat, _meta(lambda: YOLOv8(variant, num_classes)))
+
+
+def convert_text_detector(flat, width: int = 32):
+    from omniparser_tpu_torch.models.ocr import TextDetector
+
+    return convert_variables(flat, _meta(lambda: TextDetector(width)))
+
+
+def convert_text_recognizer(flat, width: int = 64, layers: int = 2, heads: int = 4):
+    """The position table's length gives the sequence length (W/4)."""
+    from omniparser_tpu_torch.models.ocr import TextRecognizer
+
+    seq_len = int(np.asarray(flat["params/pos_embed"]).shape[1])
+    return convert_variables(
+        flat, _meta(lambda: TextRecognizer(width, layers, heads, seq_len)))
+
+
+def convert_florence2(flat, dims=None):
+    from omniparser_tpu_torch.models.florence2 import BASE, Florence2
+
+    return convert_variables(flat, _meta(lambda: Florence2(dims or BASE)))

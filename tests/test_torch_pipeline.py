@@ -1,0 +1,162 @@
+"""The slice as a whole: one synthetic GUI scene through ``parse_image`` of
+the JAX package and of the port, with the same (shipped, trained) weights
+carried through ``weights/convert.py``, on the CPU in float32.
+
+The JAX pipeline builds its networks in bfloat16; here it gets float32
+modules injected (its own constructor arguments and attributes — nothing
+in the package changes), so that both sides compute in float32.
+"""
+
+import base64
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from omniparser_tpu import config as jcfg
+from omniparser_tpu.models import florence2 as jflo
+from omniparser_tpu.models import ocr as jocr
+from omniparser_tpu.models import yolov8 as jyolo
+from omniparser_tpu.pipeline import SOMPipeline as JaxPipeline
+from omniparser_tpu.train.synth_gui import render_gui_scene
+from omniparser_tpu_torch import config as tcfg
+from omniparser_tpu_torch.models.florence2 import FlorenceDims
+from omniparser_tpu_torch.pipeline import Omniparser, SOMPipeline
+from omniparser_tpu_torch.weights import convert
+
+# small shapes: more threads only contend with the other test workers
+torch.set_num_threads(2)
+
+SIZE = 320
+SMALL = dict(
+    detector=dict(default_imgsz=SIZE, max_detections=64),
+    captioner=dict(batch_size=16),
+    ocr=dict(det_imgsz=SIZE, max_text_boxes=64),
+)
+
+
+class F32Detector(jyolo.Detector):
+    @property
+    def module(self):
+        return jyolo.YOLOv8(variant=self.variant, num_classes=self.num_classes,
+                            dtype=jnp.float32)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    jc = jcfg.PipelineConfig(
+        detector=jcfg.DetectorConfig(**SMALL["detector"]),
+        captioner=jcfg.CaptionerConfig(**SMALL["captioner"]),
+        ocr=jcfg.OcrConfig(**SMALL["ocr"]))
+    det = F32Detector(imgsz=SIZE, max_det=64, prefilter=jc.detector.prefilter_topk)
+    ocr = jocr.JaxOCR(jc.ocr, weights=jocr.default_ocr_weights(jc.ocr))
+    ocr.det = jocr.TextDetector(dtype=jnp.float32)
+    ocr.rec = jocr.TextRecognizer(dtype=jnp.float32)
+    cap = jflo.FlorenceCaptioner.from_synth_checkpoint(
+        jflo.default_captioner_weights(), jc.captioner)
+    cap.model = jflo.Florence2(dims=cap.dims, dtype=jnp.float32)
+    jp = JaxPipeline(jc, detector=det, captioner=cap, ocr=ocr)  # shipped det_synth ('auto')
+
+    tc = tcfg.PipelineConfig(
+        detector=tcfg.DetectorConfig(dtype="float32", **SMALL["detector"]),
+        captioner=tcfg.CaptionerConfig(dtype="float32", **SMALL["captioner"]),
+        ocr=tcfg.OcrConfig(dtype="float32", **SMALL["ocr"]))
+    flat = convert.flatten_variables
+    dims = FlorenceDims(**{f: getattr(cap.dims, f) for f in FlorenceDims.__dataclass_fields__})
+    tp = SOMPipeline(
+        tc, device="cpu",
+        detector_state=convert.convert_yolov8(flat(_np(jp.detector_params))),
+        ocr_states=(convert.convert_text_detector(flat(_np(ocr.det_params))),
+                    convert.convert_text_recognizer(flat(_np(ocr.rec_params)))),
+        captioner_state=convert.convert_florence2(flat(_np(cap.params)), dims),
+        captioner_dims=dims)
+    return jp, tp
+
+
+def _scene(seed):
+    return np.asarray(render_gui_scene(np.random.default_rng(seed), size=SIZE)[0])
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_parse_image_matches_jax(pipelines, seed):
+    jp, tp = pipelines
+    img = _scene(seed)
+    h, w = img.shape[:2]
+    j_ann, j_labels, j_el = jp.parse_image(img)
+    t_ann, t_labels, t_el = tp.parse_image(img)
+    assert len(j_el) >= 4, "the scene should give the pipeline something to do"
+    assert len(t_el) == len(j_el)
+    for a, b in zip(t_el, j_el):
+        assert (a["type"], a["source"], a["interactivity"]) == \
+               (b["type"], b["source"], b["interactivity"])
+        # OCR strings and greedy captions are argmax outputs: exact
+        assert a["content"] == b["content"]
+        # bbox within one pixel of the frame
+        scale = np.array([w, h, w, h], np.float32)
+        assert np.abs((np.array(a["bbox"]) - np.array(b["bbox"])) * scale).max() <= 1.0
+    assert {e["type"] for e in t_el} == {"text", "icon"}
+    assert any(e["source"] == "box_yolo_content_yolo" for e in t_el)
+    assert set(t_labels) == set(j_labels)
+    for k in t_labels:
+        np.testing.assert_allclose(t_labels[k], j_labels[k], atol=1.0 / min(h, w))
+    # the overlay is drawn by the same cv2 code from boxes within a pixel
+    assert t_ann.shape == j_ann.shape == img.shape and t_ann.dtype == np.uint8
+    assert tp.last_counts["kb"] >= 8 and tp.last_counts["ocr_valid"] >= 1
+
+
+def test_parse_elements_is_parse_image_without_the_overlay(pipelines):
+    _, tp = pipelines
+    img = _scene(3)
+    labels, elements = tp.parse_elements(img)
+    _, labels2, elements2 = tp.parse_image(img)
+    assert elements == elements2 and labels == labels2
+    lines = tp.content_lines(elements)
+    assert len(lines) == len(elements) and lines[0].startswith(("Text Box ID 0:", "Icon Box ID 0:"))
+
+
+def test_omniparser_facade_round_trip(pipelines):
+    from omniparser_tpu_torch.utils.image import decode_base64_image, encode_image_base64
+
+    _, tp = pipelines
+    parser = Omniparser.__new__(Omniparser)
+    parser.config, parser.pipeline = tp.config, tp
+    img = _scene(3)
+    som_b64, elements = parser.parse(encode_image_base64(img))
+    assert decode_base64_image(som_b64).shape == img.shape
+    assert base64.b64decode(som_b64)[:4] == b"\x89PNG"
+    assert elements == tp.parse_elements(img)[1]
+
+
+def test_auto_weights_raise_where_the_export_is_missing(tmp_path, monkeypatch):
+    """'auto' never falls back to untrained networks: only None asks for a seed."""
+    from omniparser_tpu_torch import pipeline as tpipe
+
+    monkeypatch.setattr(tpipe, "EXPORT_DIR", str(tmp_path))
+    cfg = tcfg.PipelineConfig(captioner=tcfg.CaptionerConfig(backend="null"),
+                              ocr=tcfg.OcrConfig(backend="null"))
+    assert cfg.detector_weights == "auto"
+    with pytest.raises(FileNotFoundError, match="export_torch_weights.py"):
+        SOMPipeline(cfg, device="cpu")
+
+
+def test_overflow_warnings_and_null_backends(rng):
+    """The two no-silent-caps warnings, and the detection-only parse."""
+    cfg = tcfg.PipelineConfig(
+        detector=tcfg.DetectorConfig(default_imgsz=160, max_detections=8, prefilter_topk=16,
+                                     dtype="float32"),
+        captioner=tcfg.CaptionerConfig(backend="null"),
+        ocr=tcfg.OcrConfig(backend="null"),
+        detector_weights=None)
+    pipe = SOMPipeline(cfg, device="cpu")
+    img = rng.integers(0, 255, (120, 160, 3), dtype=np.uint8)
+    with pytest.warns(RuntimeWarning, match="detector prefilter overflow"):
+        labels, elements = pipe.parse_elements(img, box_threshold=0.0)
+    assert elements and all(e["content"] == "icon" for e in elements)
+    assert all(e["source"] == "box_yolo_content_yolo" for e in elements)
+    assert set(labels) == {str(i) for i in range(len(elements))}
