@@ -11,13 +11,17 @@ once without a card.  Phases, one JSON line each:
                   omniparser_tpu_torch/build/
   kernels         each hand-written kernel against its plain PyTorch version
                   on the card, at the main path's shapes, with timings and
-                  the least time the card could take for the same work
+                  the least time the card could take for the same work; the
+                  NMS kernel also in its edge cases (N around a 64-box block,
+                  all kept, all invalid, a chain across blocks) and with its
+                  two launches timed apart
   parse           one 1080x1920 synthetic screenshot through
                   SOMPipeline.parse_elements at the default widths
                   (YOLOv8-n @1280, TextDetector @1920, TextRecognizer on
                   32x480 lines, Florence-2-base dims), seeded random weights;
                   the kernels' launch counters must rise, the caption decode
-                  must run, two runs must agree; then a torch.profiler pass
+                  must run, two runs must agree; the parse's own NMS window
+                  against the plain version; then a torch.profiler pass
                   (device time against wall)
   parity_on_card  the fused step on the card against the same step on the
                   CPU, same weights and image, float32, reduced size
@@ -139,12 +143,31 @@ def clustered_boxes(rng, n: int, clusters: int, scale: float = 1280.0) -> np.nda
 
 def nms_case(rng, n: int):
     boxes = clustered_boxes(rng, n, clusters=max(n // 12, 4))
-    boxes[n // 2: n // 2 + 40] = boxes[:40]                 # duplicate boxes
+    d = min(40, n // 2)
+    boxes[n // 2: n // 2 + d] = boxes[:d]                   # duplicate boxes
     boxes[100:116, 2] = boxes[100:116, 0]                   # zero-area boxes
     valid = np.ones(n, bool)
     valid[rng.integers(0, n, n // 16)] = False              # invalid slots inside
     valid[n - n // 10:] = False                             # and the padding tail
     return boxes, valid
+
+
+def nms_edge_cases(rng):
+    """K1's edge cases: N on both sides of a 64-box block and of the
+    pipelined scan's limit (4096), every box kept, every box invalid, and a
+    suppression chain across block boundaries."""
+    cases = {f"n{n}": nms_case(rng, n) for n in (1, 63, 64, 65, 4000, 4096, 8192, 20000)}
+    g = np.arange(64, dtype=np.float32) * 10
+    x, y = np.meshgrid(g, g)
+    grid = np.stack([x, y, x + 8, y + 8], -1).reshape(-1, 4).astype(np.float32)
+    cases["all_kept"] = (grid, np.ones(4096, bool))
+    cases["all_invalid"] = (nms_case(rng, 4096)[0], np.zeros(4096, bool))
+    # A (63) suppresses B (64); B would have suppressed C (128), so C is kept
+    d = np.arange(4096, dtype=np.float32) * 40 + 1000
+    chain = np.stack([d % 40000, d // 40000 * 40, d % 40000 + 10, d // 40000 * 40 + 10], -1)
+    chain[63], chain[64], chain[128] = [0, 0, 10, 10], [5, 0, 15, 10], [11, 0, 21, 10]
+    cases["chain"] = (chain.astype(np.float32), np.ones(4096, bool))
+    return cases
 
 
 def overlap_case(rng, n: int, m: int):
@@ -243,6 +266,32 @@ def phase_build():
          cached=info["cached"], flags=" ".join(cuda_build.NVCC_FLAGS), ptxas=ptxas)
 
 
+def nms_stage_ms(b, v, thr: float, iters: int = 200, lib=None):
+    """K1's two launches timed apart, through the C entries that nms_keep
+    launches (from `lib`, another build of nms.cu, where given), on buffers
+    made once: (mask_ms, scan_ms).  The keep mask they give is checked."""
+    from omniparser_tpu_torch.ops import cuda_build, hopper_kernels
+
+    n = b.shape[0]
+    mask_fn, scan_fn = hopper_kernels.nms_entries(n, lib)
+    mask = torch.empty((hopper_kernels.nms_mask_words(n),), dtype=torch.int64, device=b.device)
+    keep = torch.empty((n,), dtype=torch.bool, device=b.device)
+    stream = cuda_build.current_stream()
+
+    def mask_call():
+        cuda_build.check(mask_fn(b.data_ptr(), mask.data_ptr(), n, thr, stream), "nms_mask")
+
+    def scan_call():
+        cuda_build.check(scan_fn(v.data_ptr(), keep.data_ptr(), mask.data_ptr(), n, stream),
+                         "nms_scan")
+
+    mask_call()
+    scan_call()
+    if not torch.equal(keep, hopper_kernels.nms_keep_plain(b, v, thr)):
+        fail(f"nms_keep's two launches disagree with the plain version at N={n}")
+    return time_ms(mask_call, iters), time_ms(scan_call, iters)
+
+
 def phase_kernels(seed: int):
     import torch.nn.functional as F
 
@@ -285,7 +334,28 @@ def phase_kernels(seed: int):
                    "replaces": "omniparser_tpu/ops/pallas_kernels.py:97",
                    "launches": 0, "max_abs_err": float(mism), "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bms, "bound_by": by, "library_ms": None,
-                   "shape": {"N": n, "keeps": keeps}, "bytes_moved": n * 18, "mask_bytes": n * ((n + 63) // 64) * 8}
+                   "shape": {"N": n, "keeps": keeps}, "bytes_moved": n * 18,
+                   "mask_bytes": hopper_kernels.nms_mask_words(n) * 8}
+            rec["mask_ms"], rec["scan_ms"] = nms_stage_ms(b, v, thr)
+    # the edge cases, from their own generator so that the cases above and
+    # below stay what earlier runs drew
+    for name, (boxes, valid) in nms_edge_cases(np.random.default_rng(seed + 7)).items():
+        b, v = cu(boxes), cu(valid)
+        want = hopper_kernels.nms_keep_plain(b, v, thr)
+        mism = int((hopper_kernels.nms_keep(b, v, thr) != want).sum())
+        emit("kernels", kernel="nms_keep", case=name, n=len(valid), keeps=int(want.sum()),
+             valid=int(valid.sum()), mismatches=mism)
+        if mism:
+            fail(f"nms_keep disagrees with its plain version in case {name}: {mism} slots")
+        if name == "chain" and not (want[63] and not want[64] and want[128]):
+            fail("the chain case does not chain")
+        if name == "all_kept":
+            if not bool(want.all()):
+                fail("the all-kept case suppresses a box")
+            rec["all_kept_ms"] = time_ms(lambda: hopper_kernels.nms_keep(b, v, thr), 50)
+            rec["all_kept_mask_ms"], rec["all_kept_scan_ms"] = nms_stage_ms(b, v, thr)
+            nk = len(valid)
+            rec["all_kept_bound_ms"] = bound(nk * 18, 13.0 * nk * (nk - 1) / 2)[0]
     records.append(rec)
 
     # ---- K2: merge matrices, a/b exact, ratio 1e-6 ---------------------
@@ -364,6 +434,7 @@ def phase_kernels(seed: int):
         "bound_ms": bms, "bound_by": by, "library_ms": time_ms(lib, 20, warmup=1),
         "library_max_abs_diff": lib_err, "shape": {"K": k, "S": s, "frame": list(img.shape)},
         "bytes_moved": src_bytes + k * 16 + 8 + out_bytes, "source_bytes": src_bytes,
+        "line_grid_max_abs_diff": err_l,
         "line_grid_ms": time_ms(
             lambda: hopper_crop.crop_resize(im, hw, lb, (32, 480), grid="line"), 200)})
     for r in records:
@@ -449,13 +520,33 @@ def phase_parse(seed: int, records):
     labels_b, elements_b, wall_b, _ = run(cfg, stage_ms)
     peak = torch.cuda.max_memory_allocated()
 
-    # candidates above the threshold, from the detector's raw decode (outside
-    # the counted run)
-    ctx = pipe._stage_upload(image)
-    raw = pipe.detector.detect_graph(
-        pipe.det_module, ctx["padded_dev"], (ctx["uh"], ctx["uw"]),
-        cfg.detector.box_threshold, cfg.detector.nms_iou_threshold, with_raw=True)[-1][1]
+    # candidates above the threshold, from the detector's raw decode, and
+    # the NMS window the detector hands nms_keep (outside the counted run)
+    from omniparser_tpu_torch.ops import hopper_kernels
+    from omniparser_tpu_torch.ops import nms as nms_mod
+
+    window = []
+
+    def recording_nms_keep(b, v, thr):
+        window.append((b.clone(), v.clone(), thr))
+        return hopper_kernels.nms_keep(b, v, thr)
+
+    nms_mod.nms_keep = recording_nms_keep
+    try:
+        ctx = pipe._stage_upload(image)
+        raw = pipe.detector.detect_graph(
+            pipe.det_module, ctx["padded_dev"], (ctx["uh"], ctx["uw"]),
+            cfg.detector.box_threshold, cfg.detector.nms_iou_threshold, with_raw=True)[-1][1]
+    finally:
+        nms_mod.nms_keep = hopper_kernels.nms_keep
     above = int((raw > cfg.detector.box_threshold).sum())
+    wb, wv, wthr = window[0]
+    want = hopper_kernels.nms_keep_plain(wb, wv, wthr)
+    mism = int((hopper_kernels.nms_keep(wb, wv, wthr) != want).sum())
+    emit("kernels", kernel="nms_keep", case="main_path_window", n=int(wv.numel()),
+         keeps=int(want.sum()), valid=int(wv.sum()), thr=wthr, mismatches=mism)
+    if mism:
+        fail(f"nms_keep disagrees with its plain version on the parse's window: {mism} slots")
 
     emit("parse", box_threshold=cfg.detector.box_threshold,
          text_threshold=cfg.ocr.text_threshold, detector_candidates_above_threshold=above,

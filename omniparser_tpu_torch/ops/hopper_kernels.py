@@ -26,7 +26,7 @@ _INSIDE_THRESHOLD = 0.80
 
 launch_counts: Dict[str, int] = {"nms_keep": 0, "overlap_matrices": 0}
 
-_MAX_NMS_N = 65536  # the scan's bit words must fit static shared memory
+_MAX_NMS_N = 65536  # the scan keeps 2 words per 64-box block in shared memory
 
 
 def _check_boxes(t: torch.Tensor, name: str) -> None:
@@ -69,11 +69,42 @@ def nms_keep_plain(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
     return keep
 
 
+# the pipelined scan keeps every bitmask column of N <= 4096 in one stage
+NMS_FAST_MAX_N = 4096
+
+
+def nms_entries(n: int, lib=None):
+    """The two C entries of nms.cu that nms_keep launches for N boxes, typed:
+    (mask launch, scan launch).  The scan is the pipelined one for
+    N <= NMS_FAST_MAX_N and the streaming one above.  `lib` is another build
+    of nms.cu to take them from (scripts/kernel_variants.py)."""
+    lib = lib or cuda_build.load("nms.cu")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    mask = lib.nms_mask_launch
+    mask.argtypes, mask.restype = [vp, vp, i32, ctypes.c_float, vp], i32
+    scan = lib.nms_scan_fast_launch if n <= NMS_FAST_MAX_N else lib.nms_scan_stream_launch
+    scan.argtypes, scan.restype = [vp, vp, vp, i32, vp], i32
+    return mask, scan
+
+
+def nms_mask_words(n: int) -> int:
+    """Length of the kernels' bitmask scratch: column p of the
+    column-major, triangle-packed mask holds 64(p+1) words."""
+    cb = (n + 63) // 64
+    return 32 * cb * (cb + 1)
+
+
 def nms_keep(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
              iou_threshold: float) -> torch.Tensor:
     """Greedy NMS keep mask for score-sorted boxes (exact torchvision
     semantics).  sorted_boxes [N,4] float32 descending by score,
-    sorted_valid [N] bool.  Returns keep [N] bool, the full greedy mask."""
+    sorted_valid [N] bool.  Returns keep [N] bool, the full greedy mask.
+
+    On the card two kernels of csrc/nms.cu: the bitmask, then the scan over
+    64-box blocks, chosen by N: N <= 4096 (the main path's window) takes the
+    pipelined scan, whose bitmask columns each fit one shared-memory stage;
+    4096 < N <= 65536 takes the streaming scan, which reads each column in
+    2048-word chunks."""
     _check_boxes(sorted_boxes, "sorted_boxes")
     n = sorted_boxes.shape[0]
     if sorted_valid.dtype != torch.bool or sorted_valid.shape != (n,):
@@ -85,16 +116,14 @@ def nms_keep(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
         return nms_keep_plain(sorted_boxes, sorted_valid, float(iou_threshold))
     if not 0 < n <= _MAX_NMS_N:
         raise ValueError(f"nms_keep: N={n} outside (0, {_MAX_NMS_N}]")
-    lib = cuda_build.load("nms.cu")
-    fn = lib.nms_keep_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    cb = (n + 63) // 64
+    mask_fn, scan_fn = nms_entries(n)
     keep = torch.empty((n,), dtype=torch.bool, device=sorted_boxes.device)
-    mask = torch.empty((n * cb,), dtype=torch.int64, device=sorted_boxes.device)
+    mask = torch.empty((nms_mask_words(n),), dtype=torch.int64, device=sorted_boxes.device)
     with torch.cuda.device(sorted_boxes.device):
-        err = fn(sorted_boxes.data_ptr(), sorted_valid.data_ptr(), keep.data_ptr(),
-                 mask.data_ptr(), n, float(iou_threshold), cuda_build.current_stream())
+        stream = cuda_build.current_stream()
+        err = mask_fn(sorted_boxes.data_ptr(), mask.data_ptr(), n, float(iou_threshold), stream)
+        if err == 0:
+            err = scan_fn(sorted_valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), n, stream)
     launch_counts["nms_keep"] += 1
     cuda_build.check(err, "nms_keep")
     return keep
