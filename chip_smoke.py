@@ -14,14 +14,18 @@ once without a card.  Phases, one JSON line each:
                   the least time the card could take for the same work; the
                   NMS kernel also in its edge cases (N around a 64-box block,
                   all kept, all invalid, a chain across blocks) and with its
-                  two launches timed apart
+                  two launches timed apart; the fused merge in MERGE_CASES
+                  (and a case above 48 KB of shared memory), all four masks
+                  exact
   parse           one 1080x1920 synthetic screenshot through
                   SOMPipeline.parse_elements at the default widths
                   (YOLOv8-n @1280, TextDetector @1920, TextRecognizer on
                   32x480 lines, Florence-2-base dims), seeded random weights;
                   the kernels' launch counters must rise, the caption decode
-                  must run, two runs must agree; the parse's own NMS window
-                  against the plain version; then a torch.profiler pass
+                  must run, two runs must agree, the merge must be one
+                  launch of the fused kernel; the parse's own NMS window and
+                  merge inputs against the plain versions; then a
+                  torch.profiler pass
                   (device time against wall)
   parity_on_card  the fused step on the card against the same step on the
                   CPU, same weights and image, float32, reduced size
@@ -191,6 +195,140 @@ def overlap_case(rng, n: int, m: int):
         icons[300 + k] = [o, 0.25, o + 0.3125, 0.5625]
         ocr[120 + k] = [o, 0.25, o + 0.3125, 0.25 + 0.25]
     return icons, ocr
+
+
+def unit_boxes(rng, n: int, max_size: float, min_size: float = 0.01) -> np.ndarray:
+    """Random normalised xyxy boxes with positive extent."""
+    xy = rng.uniform(0, 1 - max_size, (n, 2))
+    wh = rng.uniform(min_size, max_size, (n, 2))
+    return np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+
+
+def inside_boxes(boxes: np.ndarray, frac: float) -> np.ndarray:
+    """Boxes at `frac` of each box's half-extent around its centre."""
+    c = (boxes[:, :2] + boxes[:, 2:]) / 2
+    half = (boxes[:, 2:] - boxes[:, :2]) / 2
+    return np.concatenate([c - frac * half, c + frac * half], axis=1).astype(np.float32)
+
+
+def _merge_random(rng, n: int, m: int):
+    icons = unit_boxes(rng, n, 0.35)
+    ocr = unit_boxes(rng, m, 0.12)
+    q = min(n, m) // 2
+    ocr[:q] = inside_boxes(icons[:q], 0.4)                     # inside icons
+    ocr[q:q + q // 2] = inside_boxes(icons[:q // 2], 1.4)      # around icons
+    if n > 4:
+        icons[n - 2:] = icons[:2] * np.float32(0.98) + np.float32(0.01)  # near-duplicates
+    return icons, rng.uniform(size=n) > 0.1, ocr, rng.uniform(size=m) > 0.1
+
+
+def _merge_kstop_0(rng):
+    """OCR box 0 contains both icons: each stops at k = 0 and absorbs none
+    of the boxes inside it that come later."""
+    icons = np.array([[0.40, 0.40, 0.45, 0.44], [0.41, 0.41, 0.44, 0.43]], np.float32)
+    ocr = np.concatenate([[[0.3, 0.3, 0.6, 0.6]], inside_boxes(icons, 0.5),
+                          unit_boxes(rng, 37, 0.05)]).astype(np.float32)
+    return icons, np.ones(2, bool), ocr, np.ones(len(ocr), bool)
+
+
+def _merge_kstop_m(rng):
+    """No OCR box contains an icon: k_stop = M (40, not a multiple of 32),
+    and the last box, inside icon 0, is absorbed."""
+    icons = np.array([[0.1, 0.1, 0.5, 0.5], [0.6, 0.6, 0.9, 0.9]], np.float32)
+    ocr = np.tile(np.array([[0.92, 0.92, 0.95, 0.95]], np.float32), (40, 1))
+    ocr[39] = inside_boxes(icons[:1], 0.5)[0]
+    ocr[3] = inside_boxes(icons[1:], 0.3)[0]
+    return icons, np.ones(2, bool), ocr, np.ones(40, bool)
+
+
+def _merge_chains(rng):
+    """Icons in several blocks absorb the same OCR boxes (a box donates to
+    every icon it sits in); icon 20's scan stops at k = 37, inside the second
+    32-wide chunk, after absorbing boxes on both sides of k = 32 and right
+    before the stop; icon 21 is contained by boxes in both chunks (k = 10,
+    44) and stops at the first."""
+    n, m = 22, 45
+    # shifted by k/1024: the same area to the last bit, so none suppresses another
+    big = np.array([0.25, 0.25, 0.625, 0.625], np.float32)
+    icons = np.tile(big, (n, 1)) + (np.arange(n, dtype=np.float32) / 1024)[:, None]
+    icons[20] = [0.05, 0.05, 0.15, 0.15]
+    icons[21] = [0.7, 0.05, 0.8, 0.15]
+    ocr = unit_boxes(rng, m, 0.04) * np.float32(0.1) + np.float32(0.85)
+    ocr[[2, 5, 31, 33, 35]] = inside_boxes(np.tile(big, (5, 1)), 0.3)
+    ocr[[1, 34, 36, 40]] = inside_boxes(icons[20:21].repeat(4, 0), 0.5)
+    ocr[37] = [0.04, 0.04, 0.16, 0.14]                         # contains icon 20
+    ocr[[3, 20]] = inside_boxes(icons[21:22].repeat(2, 0), 0.4)
+    ocr[[10, 44]] = [[0.69, 0.04, 0.81, 0.15], [0.69, 0.04, 0.81, 0.16]]  # contain icon 21
+    return icons, np.ones(n, bool), ocr, np.ones(m, bool)
+
+
+def _merge_same_box(rng):
+    """OCR box 1 is icon 0 itself, each more than 0.80 inside the other:
+    the absorb rule wins, the scan goes on past it and absorbs box 5 too."""
+    icons = np.array([[0.2, 0.2, 0.4, 0.3], [0.6, 0.6, 0.7, 0.7]], np.float32)
+    ocr = unit_boxes(rng, 9, 0.05) * np.float32(0.1) + np.float32(0.85)
+    ocr[1] = icons[0]
+    ocr[5] = inside_boxes(icons[:1], 0.5)[0]
+    return icons, np.ones(2, bool), ocr, np.ones(9, bool)
+
+
+def _merge_zero_area(rng):
+    icons, iv, ocr, ov = _merge_random(rng, 33, 7)
+    icons[3:6, 2] = icons[3:6, 0]                              # zero width
+    icons[6:8, 3] = icons[6:8, 1]                              # zero height
+    icons[8] = icons[9]
+    icons[8, 2] = icons[8, 0]                                  # a zero-area copy of icon 9
+    ocr[0:2, 2] = ocr[0:2, 0]
+    ocr[2] = inside_boxes(icons[4:5], 0.5)[0]
+    return icons, iv, ocr, ov
+
+
+def _merge_ties(rng):
+    """overlap_case's exact-0.80 ties alone: OCR box k is icon k's upper
+    4/5, so icon-inside-OCR is 0.8 in exact arithmetic, not > 0.80, and no
+    icon is dropped."""
+    o = 0.125 * np.arange(4)
+    icons = np.stack([o, np.full(4, 0.25), o + 0.3125, np.full(4, 0.5625)], 1).astype(np.float32)
+    ocr = icons.copy()
+    ocr[:, 3] = 0.5
+    return icons, np.ones(4, bool), ocr, np.ones(4, bool)
+
+
+def _merge_all_invalid(rng):
+    icons, _, ocr, _ = _merge_random(rng, 33, 7)
+    return icons, np.zeros(33, bool), ocr, np.zeros(7, bool)
+
+
+def _merge_no_ocr(rng):
+    """The pipeline's no-OCR bucket: 32 zero boxes, none valid."""
+    icons, iv, _, _ = _merge_random(rng, 33, 7)
+    return icons, iv, np.zeros((32, 4), np.float32), np.zeros(32, bool)
+
+
+def _merge_main(rng):
+    icons, ocr = overlap_case(rng, 512, 256)
+    return icons, rng.uniform(size=512) > 0.1, ocr, rng.uniform(size=256) > 0.05
+
+
+# the fused merge's cases: (icon boxes, icon valid, OCR boxes, OCR valid),
+# from a numpy generator; tests/test_torch_merge.py replays the kernel on
+# the same cases on the CPU
+MERGE_CASES = {
+    "1x1": lambda rng: (np.array([[0.1, 0.1, 0.5, 0.5]], np.float32), np.ones(1, bool),
+                        np.array([[0.2, 0.2, 0.3, 0.3]], np.float32), np.ones(1, bool)),
+    "33x7": lambda rng: _merge_random(rng, 33, 7),
+    "512x256": _merge_main,
+    "all_invalid": _merge_all_invalid,
+    "kstop_0": _merge_kstop_0,
+    "kstop_m": _merge_kstop_m,
+    "chains": _merge_chains,
+    "same_box": _merge_same_box,
+    "zero_area": _merge_zero_area,
+    "ties_080": _merge_ties,
+    "no_ocr_32": _merge_no_ocr,
+    "n0": lambda rng: (np.zeros((0, 4), np.float32), np.zeros(0, bool),
+                       unit_boxes(rng, 7, 0.1), np.ones(7, bool)),
+}
 
 
 def crop_case(rng, k: int):
@@ -383,6 +521,9 @@ def phase_kernels(seed: int):
         "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": {"N": n, "M": m},
         "bytes_moved": k2_bytes})
 
+    # ---- K2, the fused merge: all four masks exact ---------------------
+    records.append(merge_record(np.random.default_rng(seed + 11), dev))
+
     # ---- K3: crop-gather, atol 1e-2 ------------------------------------
     k, s = 128, 64
     img, hw, boxes = crop_case(rng, k)
@@ -440,6 +581,99 @@ def phase_kernels(seed: int):
     for r in records:
         emit("kernels", timing=r)
     return records
+
+
+MERGE_OUTPUTS = ("icon_keep", "ocr_keep", "absorb", "icon_suppressed")
+MERGE_IOU = 0.7  # PipelineConfig.iou_threshold
+
+
+def merge_mismatches(args, thr: float = MERGE_IOU):
+    """merge_masks against merge_masks_plain on the same card tensors:
+    ({output: mismatching slots}, the plain outputs)."""
+    from omniparser_tpu_torch.ops import hopper_kernels
+
+    got = hopper_kernels.merge_masks(*args, thr)
+    want = hopper_kernels.merge_masks_plain(*args, thr)
+    torch.cuda.synchronize()
+    return {k: int((g != w).sum()) for k, g, w in zip(MERGE_OUTPUTS, got, want)}, want
+
+
+def merge_ops(args, want) -> float:
+    """The float operations these inputs need: the areas (3 a box), the
+    ratio (22) for each valid icon against each valid, smaller icon, and the
+    two containment ratios (16) for each icon that survives suppression
+    against each valid OCR box up to and including its stop index."""
+    from omniparser_tpu_torch.ops import hopper_kernels
+
+    ib, iv, ob, ov = args
+    n, m = ib.shape[0], ob.shape[0]
+    area = (ib[:, 2] - ib[:, 0]) * (ib[:, 3] - ib[:, 1])
+    pairs = int((iv[:, None] & iv[None, :] & (area[:, None] > area[None, :])).sum())
+    _, a, b = hopper_kernels.overlap_matrices_plain(ib, ob)
+    b = b & ~a & ov[None, :]
+    stop = torch.where(b.any(1), torch.argmax(b.to(torch.int8), 1), m)  # each row's k_stop
+    ks = torch.arange(m, device=ib.device)
+    scanned = int((ov[None, :] & (ks[None, :] <= stop[:, None]))[iv & ~want[3]].sum())
+    return float(3 * (n + m) + 22 * pairs + 16 * scanned)
+
+
+def merge_record(rng, dev):
+    """K2's main-path entry, the fused merge: every case of MERGE_CASES and
+    a case above 48 KB of shared memory against the plain version, then
+    timed at 512x256 (and checked again after the timing's launches, which
+    reuse the bitmask scratch)."""
+    from omniparser_tpu_torch.ops import hopper_kernels
+
+    cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cases = {name: make(rng) for name, make in MERGE_CASES.items()}
+    big = overlap_case(rng, 4096, 1024)
+    cases["4096x1024"] = (big[0], rng.uniform(size=4096) > 0.1, big[1],
+                          rng.uniform(size=1024) > 0.05)
+    main = None
+    for name, case in cases.items():
+        args = tuple(cu(a) for a in case)
+        mism, want = merge_mismatches(args)
+        emit("kernels", kernel="merge_masks", case=name, n=len(case[0]), m=len(case[2]),
+             icon_keep=int(want[0].sum()), ocr_keep=int(want[1].sum()),
+             absorb=int(want[2].sum()), icon_suppressed=int(want[3].sum()), mismatches=mism)
+        if any(mism.values()):
+            fail(f"merge_masks disagrees with its plain version in case {name}: {mism}")
+        if name == "512x256":
+            main = (args, want)
+        if name == "zero_area":
+            # below 0 a disjoint pair passes the threshold: no disjoint skip
+            for thr in (-0.1, 0.0):
+                mism, want = merge_mismatches(args, thr)
+                emit("kernels", kernel="merge_masks", case=name, thr=thr,
+                     icon_suppressed=int(want[3].sum()), mismatches=mism)
+                if any(mism.values()):
+                    fail(f"merge_masks disagrees with its plain version at threshold {thr}: "
+                         f"{mism}")
+    args, want = main
+    n, m = args[0].shape[0], args[2].shape[0]
+    call = lambda: hopper_kernels.merge_masks(*args, MERGE_IOU)
+    plain = lambda: hopper_kernels.merge_masks_plain(*args, MERGE_IOU)
+    ms = time_ms(call, 200)
+    mism, _ = merge_mismatches(args)
+    if any(mism.values()):
+        fail(f"merge_masks disagrees with its plain version after the timing loop: {mism}")
+    # each input read once, each output written once
+    nbytes = (n + m) * 17 + n * m + 2 * n + m
+    flops = merge_ops(args, want)
+    bms, by = bound(nbytes, flops)
+    dense_flops = n * n * 22.0 + n * m * 16.0
+    return {"name": "merge_masks", "route": "cuda",
+            "source": "omniparser_tpu_torch/csrc/overlap.cu",
+            "replaces": "omniparser_tpu/ops/pallas_kernels.py:163",
+            "launches": 0, "max_abs_err": float(sum(mism.values())), "ms": ms,
+            "plain_ms": time_ms(plain, 20),
+            # what an eager caller waits for the plain version: its ~35
+            # launches enqueued from the host, nothing queued ahead
+            "plain_eager_ms": time_ms(plain, 20, preload=False),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": {"N": n, "M": m}, "bytes_moved": nbytes, "flops": flops,
+            "dense_flops": dense_flops, "dense_bound_ms": bound(nbytes, dense_flops)[0],
+            "eager_ms": time_ms(call, 20, preload=False)}
 
 
 def all_counts():
@@ -548,14 +782,41 @@ def phase_parse(seed: int, records):
     if mism:
         fail(f"nms_keep disagrees with its plain version on the parse's window: {mism} slots")
 
+    # the merge's own inputs, from one more parse (outside the counted run)
+    from omniparser_tpu_torch.ops import overlap as overlap_mod
+
+    merge_inputs = []
+
+    def recording_merge_masks(*args):
+        merge_inputs.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return hopper_kernels.merge_masks(*args)
+
+    overlap_mod.merge_masks = recording_merge_masks
+    try:
+        run(cfg)
+    finally:
+        overlap_mod.merge_masks = hopper_kernels.merge_masks
+    *margs, mthr = merge_inputs[0]
+    mism, want = merge_mismatches(tuple(margs), mthr)
+    emit("kernels", kernel="merge_masks", case="main_path_merge", n=int(margs[0].shape[0]),
+         m=int(margs[2].shape[0]), icon_valid=int(margs[1].sum()), ocr_valid=int(margs[3].sum()),
+         thr=mthr, icon_keep=int(want[0].sum()), ocr_keep=int(want[1].sum()),
+         absorb=int(want[2].sum()), icon_suppressed=int(want[3].sum()), mismatches=mism)
+    if any(mism.values()):
+        fail(f"merge_masks disagrees with its plain version on the parse's merge: {mism}")
+
     emit("parse", box_threshold=cfg.detector.box_threshold,
          text_threshold=cfg.ocr.text_threshold, detector_candidates_above_threshold=above,
          counts=run_counts, launches=counts, wall_ms=[round(wall_a, 2), round(wall_b, 2)],
          host_stage_ms=timings, device_stage_ms={k: round(v, 3) for k, v in stage_ms.items()},
          max_memory_allocated=peak, warnings=warns)
-    for name in ("nms_keep", "overlap_matrices", "crop_resize"):
+    for name in ("nms_keep", "merge_masks", "crop_resize"):
         if counts.get(name, 0) < 1:
             fail(f"kernel {name} was not launched during the parse")
+    # the merge is one launch of the fused kernel, not the matrices
+    if counts["merge_masks"] != 1 or counts["overlap_matrices"] != 0:
+        fail(f"the parse launched merge_masks {counts['merge_masks']} times and "
+             f"overlap_matrices {counts['overlap_matrices']} times (want 1 and 0)")
     if run_counts["kb"] < 1:
         fail("the caption decode never ran")
     if elements_a != elements_b or labels_a != labels_b:

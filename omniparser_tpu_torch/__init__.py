@@ -6,7 +6,8 @@ screenshot becomes a structured list of UI elements
 ``{type, bbox, interactivity, content, source}`` plus a numbered
 Set-of-Mark overlay.  Plain tensor code is PyTorch; the three kernels the
 JAX package wrote for the TPU (greedy NMS, the merge matrices, the
-bilinear crop-gather) are hand-written CUDA kernels under ``csrc/``.
+bilinear crop-gather) are hand-written CUDA kernels under ``csrc/``; the
+merge runs as one kernel that computes the whole merge decision.
 
 This package imports torch, never jax, and nothing of ``omniparser_tpu``.
 Every entry point takes ``device=`` and defaults to the card:

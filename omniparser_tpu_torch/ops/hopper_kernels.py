@@ -1,4 +1,5 @@
-"""The suppression kernels: greedy NMS keep mask and the merge matrices.
+"""The suppression kernels: greedy NMS keep mask, the merge matrices and the
+fused merge.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/nms.cu``,
 ``csrc/overlap.cu``) for CUDA tensors and takes the plain PyTorch version
@@ -24,12 +25,14 @@ from omniparser_tpu_torch.ops.boxes import (
 
 _INSIDE_THRESHOLD = 0.80
 
-launch_counts: Dict[str, int] = {"nms_keep": 0, "overlap_matrices": 0}
+launch_counts: Dict[str, int] = {"nms_keep": 0, "overlap_matrices": 0, "merge_masks": 0}
 
 _MAX_NMS_N = 65536  # the scan keeps 2 words per 64-box block in shared memory
 
 
 def _check_boxes(t: torch.Tensor, name: str) -> None:
+    """float32 [N,4], contiguous, and 16-byte aligned on the card (the
+    kernels read a box as one float4)."""
     if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 4:
         raise ValueError(f"{name}: want float32 [N,4], got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -171,3 +174,113 @@ def overlap_matrices(icon_boxes: torch.Tensor, ocr_boxes: torch.Tensor
     launch_counts["overlap_matrices"] += 1
     cuda_build.check(err, "overlap_matrices")
     return ratio, a, b
+
+
+# ------------------------------------------------------------------ #
+# The fused merge
+# ------------------------------------------------------------------ #
+
+# every block stages all boxes in shared memory, 21 bytes each, and 20 bytes
+# of bitmasks a 32 OCR boxes: N + M up to 10240 fits in the 227 KB a block
+# can have
+MERGE_MAX_BOXES = 10240
+
+MergeMasks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def merge_masks_plain(icon_boxes: torch.Tensor, icon_valid: torch.Tensor,
+                      ocr_boxes: torch.Tensor, ocr_valid: torch.Tensor,
+                      iou_threshold: float) -> MergeMasks:
+    """Plain PyTorch merge decision -> (icon_keep [N], ocr_keep [M],
+    absorb [N,M], icon_suppressed [N]), all bool.  See ops/overlap.py for
+    the rules."""
+    n = icon_boxes.shape[0]
+    m = ocr_boxes.shape[0]
+    dev = icon_boxes.device
+
+    ratio, a_geom, b_geom = overlap_matrices_plain(icon_boxes, ocr_boxes)
+    a = a_geom & ocr_valid[None, :]
+    b = b_geom & ocr_valid[None, :]
+
+    # --- icon-vs-icon suppression (keep the smaller box) ---
+    area = box_area(icon_boxes)
+    not_self = ~torch.eye(n, dtype=torch.bool, device=dev)
+    bigger = area[:, None] > area[None, :]
+    suppressed_by = not_self & icon_valid[None, :] & (ratio > iou_threshold) & bigger
+    icon_suppressed = suppressed_by.any(dim=1) & icon_valid
+    icon_pass = icon_valid & ~icon_suppressed
+
+    # the reference's elif only fires when the `a` branch didn't
+    b = b & ~a
+
+    ks = torch.arange(m, device=dev)
+    any_b = b.any(dim=1)
+    first_b = torch.argmax(b.to(torch.int8), dim=1)  # first True (lowest index)
+    k_stop = torch.where(any_b, first_b, torch.full_like(first_b, m))
+
+    absorb = icon_pass[:, None] & a & (ks[None, :] < k_stop[:, None])
+    ocr_removed = absorb.any(dim=0)
+
+    icon_keep = icon_pass & ~any_b
+    ocr_keep = ocr_valid & ~ocr_removed
+    return icon_keep, ocr_keep, absorb, icon_suppressed
+
+
+# per (device, stream): the fused merge's bitmask and block ticket, which
+# every launch leaves zeroed; two streams never share one
+_merge_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _merge_scratch_for(dev: torch.device, stream: int, words: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _merge_scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros((words,), dtype=torch.int32, device=dev)
+        _merge_scratch[key] = buf
+    return buf
+
+
+def merge_masks(icon_boxes: torch.Tensor, icon_valid: torch.Tensor,
+                ocr_boxes: torch.Tensor, ocr_valid: torch.Tensor,
+                iou_threshold: float) -> MergeMasks:
+    """The whole merge decision in one launch of csrc/overlap.cu's fused
+    kernel -> (icon_keep [N], ocr_keep [M], absorb [N,M], icon_suppressed
+    [N]), bool.  icon_boxes [N,4], ocr_boxes [M,4] float32; icon_valid [N],
+    ocr_valid [M] bool.  N = 0 gives what the plain version gives; M = 0
+    raises, as the plain version's argmax over an empty row does."""
+    _check_boxes(icon_boxes, "icon_boxes")
+    _check_boxes(ocr_boxes, "ocr_boxes")
+    n, m = icon_boxes.shape[0], ocr_boxes.shape[0]
+    dev = icon_boxes.device
+    for t, name, size in ((icon_valid, "icon_valid", n), (ocr_valid, "ocr_valid", m)):
+        if t.dtype != torch.bool or t.shape != (size,):
+            raise ValueError(f"{name}: want bool [{size}], got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous and on the boxes' device")
+    if ocr_boxes.device != dev:
+        raise ValueError("icon_boxes and ocr_boxes must share a device")
+    if m == 0:
+        raise ValueError("merge_masks: M = 0 OCR slots (the first-stop index has no answer)")
+    if not icon_boxes.is_cuda:
+        return merge_masks_plain(icon_boxes, icon_valid, ocr_boxes, ocr_valid,
+                                 float(iou_threshold))
+    if n + m > MERGE_MAX_BOXES:
+        raise ValueError(f"merge_masks: N + M = {n + m} above {MERGE_MAX_BOXES}")
+    fn = cuda_build.load("overlap.cu").merge_masks_launch
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 4 + [i32, i32, ctypes.c_float] + [vp] * 6
+    fn.restype = i32
+    icon_keep = torch.empty((n,), dtype=torch.bool, device=dev)
+    ocr_keep = torch.empty((m,), dtype=torch.bool, device=dev)
+    absorb = torch.empty((n, m), dtype=torch.bool, device=dev)
+    icon_suppressed = torch.empty((n,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = cuda_build.current_stream()
+        scratch = _merge_scratch_for(dev, stream.value, (m + 31) // 32 + 1)
+        err = fn(icon_boxes.data_ptr(), icon_valid.data_ptr(), ocr_boxes.data_ptr(),
+                 ocr_valid.data_ptr(), n, m, float(iou_threshold), icon_keep.data_ptr(),
+                 ocr_keep.data_ptr(), absorb.data_ptr(), icon_suppressed.data_ptr(),
+                 scratch.data_ptr(), stream)
+    launch_counts["merge_masks"] += 1
+    cuda_build.check(err, "merge_masks")
+    return icon_keep, ocr_keep, absorb, icon_suppressed

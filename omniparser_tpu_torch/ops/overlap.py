@@ -11,8 +11,10 @@ decisions are geometric:
     icon by more than 80% kills the icon and stops the scan, so only OCR
     boxes before that stop index donate text.
 
-So the pass is three matrices (one kernel launch on the card) and a few
-reductions; only the string concatenation happens on the host.
+So the pass is three matrices and a few reductions, all in one kernel
+launch on the card (``hopper_kernels.merge_masks``; the plain version
+beside it is ``merge_masks_plain``); only the string concatenation
+happens on the host.
 """
 
 from __future__ import annotations
@@ -21,8 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from omniparser_tpu_torch.ops.boxes import box_area
-from omniparser_tpu_torch.ops.hopper_kernels import overlap_matrices
+from omniparser_tpu_torch.ops.hopper_kernels import merge_masks
 
 
 class OverlapResult(NamedTuple):
@@ -50,35 +51,6 @@ def merge_icons_and_ocr(icon_boxes: torch.Tensor, icon_valid: torch.Tensor,
     ocr_boxes [M,4], ocr_valid [M]; iou_threshold: icon-vs-icon
     suppression threshold (server: 0.7).
     """
-    n = icon_boxes.shape[0]
-    m = ocr_boxes.shape[0]
-    dev = icon_boxes.device
-    icon_boxes = icon_boxes.to(torch.float32).contiguous()
-    ocr_boxes = ocr_boxes.to(torch.float32).contiguous()
-
-    ratio, a_geom, b_geom = overlap_matrices(icon_boxes, ocr_boxes)
-    a = a_geom & ocr_valid[None, :]
-    b = b_geom & ocr_valid[None, :]
-
-    # --- icon-vs-icon suppression (keep the smaller box) ---
-    area = box_area(icon_boxes)
-    not_self = ~torch.eye(n, dtype=torch.bool, device=dev)
-    bigger = area[:, None] > area[None, :]
-    suppressed_by = not_self & icon_valid[None, :] & (ratio > iou_threshold) & bigger
-    icon_suppressed = suppressed_by.any(dim=1) & icon_valid
-    icon_pass = icon_valid & ~icon_suppressed
-
-    # the reference's elif only fires when the `a` branch didn't
-    b = b & ~a
-
-    ks = torch.arange(m, device=dev)
-    any_b = b.any(dim=1)
-    first_b = torch.argmax(b.to(torch.int8), dim=1)  # first True (lowest index)
-    k_stop = torch.where(any_b, first_b, torch.full_like(first_b, m))
-
-    absorb = icon_pass[:, None] & a & (ks[None, :] < k_stop[:, None])
-    ocr_removed = absorb.any(dim=0)
-
-    icon_keep = icon_pass & ~any_b
-    ocr_keep = ocr_valid & ~ocr_removed
-    return OverlapResult(icon_keep, ocr_keep, absorb, icon_suppressed)
+    return OverlapResult(*merge_masks(
+        icon_boxes.to(torch.float32).contiguous(), icon_valid.contiguous(),
+        ocr_boxes.to(torch.float32).contiguous(), ocr_valid.contiguous(), iou_threshold))

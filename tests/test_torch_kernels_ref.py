@@ -14,6 +14,7 @@ from omniparser_tpu.ops.preprocess import crop_resize_batch, pad_to_bucket
 from omniparser_tpu_torch.ops import hopper_crop, hopper_kernels
 from omniparser_tpu_torch.ops.hopper_crop import crop_resize, crop_resize_plain
 from omniparser_tpu_torch.ops.hopper_kernels import (
+    merge_masks,
     nms_keep,
     nms_keep_plain,
     overlap_matrices,
@@ -138,6 +139,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         nms_keep(torch.zeros((4, 4)), torch.ones(4, dtype=torch.int32), 0.5)
     with pytest.raises(ValueError):
         overlap_matrices(torch.zeros((4, 4)).t(), torch.zeros((2, 4)))
+    icons, ocr = torch.zeros((4, 4)), torch.zeros((2, 4))
+    iv, ov = torch.ones(4, dtype=torch.bool), torch.ones(2, dtype=torch.bool)
+    for args in ((icons.double(), iv, ocr, ov),             # float64 boxes
+                 (icons, iv, ocr.t().contiguous().t(), ov),  # boxes not contiguous
+                 (icons, iv.int(), ocr, ov),                 # int32 valid flags
+                 (icons, iv, ocr, ov[:1]),                   # valid of the wrong length
+                 (icons, torch.ones(8, dtype=torch.bool)[::2], ocr, ov),  # flags not contiguous
+                 (icons, iv, torch.zeros((0, 4)), ov[:0])):  # M = 0
+        with pytest.raises(ValueError):
+            merge_masks(*args, 0.7)
     with pytest.raises(ValueError):
         crop_resize(torch.zeros((8, 8, 3)), (8, 8), torch.zeros((1, 4)), 4)
     with pytest.raises(ValueError):

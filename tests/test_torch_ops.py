@@ -17,6 +17,7 @@ from omniparser_tpu_torch.ops import components as tcomp
 from omniparser_tpu_torch.ops import preprocess as tpre
 from omniparser_tpu_torch.ops.nms import nms_fixed_shape
 from omniparser_tpu_torch.ops.overlap import merge_icons_and_ocr
+from chip_smoke import MERGE_CASES
 from tests.conftest import random_boxes
 
 # small shapes: more threads only contend with the other test workers
@@ -96,24 +97,34 @@ def test_nms_fixed_shape_matches(rng, n, max_out, thr):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_), err_msg=name)
 
 
-@pytest.mark.parametrize("n,m", [(48, 24), (16, 40)])
-def test_merge_icons_and_ocr_matches(rng, n, m):
-    icons = random_boxes(rng, n, max_size=0.35)
-    ocr = random_boxes(rng, m, max_size=0.12)
-    c = (icons[:6, :2] + icons[:6, 2:]) / 2
-    half = (icons[:6, 2:] - icons[:6, :2]) / 2
-    ocr[:6] = np.concatenate([c - 0.4 * half, c + 0.4 * half], axis=1)    # inside icons
-    ocr[6:9] = np.concatenate([c[:3] - 1.4 * half[:3], c[:3] + 1.4 * half[:3]], axis=1)
-    icons[n - 4:] = icons[:4] * 0.98 + 0.01                                # near-duplicates
-    icon_valid = rng.uniform(size=n) > 0.1
-    ocr_valid = rng.uniform(size=m) > 0.1
+@pytest.mark.parametrize("n,m,case", [
+    pytest.param(48, 24, None, id="48-24"), pytest.param(16, 40, None, id="16-40"),
+    *(pytest.param(0, 0, name, id=name) for name in sorted(MERGE_CASES))])
+def test_merge_icons_and_ocr_matches(rng, n, m, case):
+    """The port's merge (merge_masks; on CPU tensors its plain version)
+    against JAX's, exact on all four masks; `case` names one of
+    chip_smoke.MERGE_CASES, the cases the fused kernel is held to on the
+    card and, replayed, in tests/test_torch_merge.py."""
+    if case is None:
+        icons = random_boxes(rng, n, max_size=0.35)
+        ocr = random_boxes(rng, m, max_size=0.12)
+        c = (icons[:6, :2] + icons[:6, 2:]) / 2
+        half = (icons[:6, 2:] - icons[:6, :2]) / 2
+        ocr[:6] = np.concatenate([c - 0.4 * half, c + 0.4 * half], axis=1)    # inside icons
+        ocr[6:9] = np.concatenate([c[:3] - 1.4 * half[:3], c[:3] + 1.4 * half[:3]], axis=1)
+        icons[n - 4:] = icons[:4] * 0.98 + 0.01                                # near-duplicates
+        icon_valid = rng.uniform(size=n) > 0.1
+        ocr_valid = rng.uniform(size=m) > 0.1
+    else:
+        icons, icon_valid, ocr, ocr_valid = MERGE_CASES[case](rng)
     want = j_merge(jnp.asarray(icons), jnp.asarray(icon_valid), jnp.asarray(ocr),
                    jnp.asarray(ocr_valid), 0.7)
     got = merge_icons_and_ocr(T(icons), T(icon_valid), T(ocr), T(ocr_valid), 0.7)
     for name in ("icon_keep", "ocr_keep", "absorb", "icon_suppressed"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)
-    assert got.absorb.any() and got.icon_suppressed.any()
+    if case is None:
+        assert got.absorb.any() and got.icon_suppressed.any()
 
 
 def test_crop_lines_and_resize_match(rng):
