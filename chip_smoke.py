@@ -27,11 +27,36 @@ once without a card.  Phases, one JSON line each:
                   merge inputs against the plain versions; then a
                   torch.profiler pass
                   (device time against wall)
+  batch           SOMPipeline.parse_batch over four screenshots of three
+                  sizes (1080x1920 twice, 768x1366, 1440x2560) with the
+                  parse's pipeline, against parse_image of each: every field
+                  but caption text equal, one generate per <=256-slot chunk,
+                  each kernel launched as often as the four parse_images
+                  launch it; walls (screenshots/s) of both, and a profiler
+                  pass over one parse_batch
+  serve           OmniparserServer over that pipeline on 127.0.0.1: the
+                  probe, 8 concurrent POST /parse/ through urllib, /metrics;
+                  every answer equal to its image's parse_image but for
+                  caption text, a batch of more than one request formed;
+                  p50/p99 latency, requests/s; a clean shutdown
+  int8            a FlorenceCaptioner with quant='int8' quantized from the
+                  parse's captioner's weights: int8 decoder and head, the
+                  first decode step's logits within tests/test_quant.py's
+                  bounds of the float captioner's on the parse's crops, the
+                  int8 product against a float32 GEMM, resident bytes and
+                  decode ms of both captioners (int8 also with the float32
+                  GEMM swapped in), one parse_elements through it
   parity_on_card  the fused step on the card against the same step on the
-                  CPU, same weights and image, float32, reduced size
+                  CPU, same weights and image, float32, reduced size; then
+                  that card pipeline's parse_batch of phase batch's four
+                  screenshots against its parse_image of each (caption texts
+                  that differ are counted)
 
-then the card's nvidia-smi line, one {"kernels": [...]} line and, last,
-{"ok": true, "device": {...}}.  Any failing phase ends the run non-zero.
+Each path (parse, batch, serve, int8) runs with the kernels' launch counters
+set to 0 just before it and read just after, and fails if a kernel of the path
+was not launched.  Then the card's nvidia-smi line, one {"kernels": [...]}
+line (``launches``: the parse's counts) and, last, {"ok": true, "device":
+{...}}.  Any failing phase ends the run non-zero.
 """
 
 from __future__ import annotations
@@ -836,31 +861,365 @@ def phase_parse(seed: int, records):
 
     # where the parse's time goes: the summed device time of all kernels
     # against the wall, from one more parse under torch.profiler
-    from torch.profiler import ProfilerActivity, profile
-
     walls = [run(cfg)[2] for _ in range(3)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_prof = run(cfg)[2]
-    # kernel rows only (an operator's row repeats its kernels' device time)
-    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
-                  key=lambda r: -r[2])
-    device_ms = sum(r[2] for r in rows)
-    emit("parse", profile={
-        "wall_ms": [round(w_, 2) for w_ in walls], "wall_ms_under_profiler": round(wall_prof, 2),
-        "device_ms": round(device_ms, 3),
-        "device_idle_share": (round(1.0 - device_ms / float(np.median(walls)), 4)
-                              if rows else "not measured: the profiler gave no device time"),
-        "kernel_launches": int(sum(r[1] for r in rows)),
-        "top": [{"name": r[0][:80], "count": r[1], "ms": round(r[2], 3)} for r in rows[:12]]})
+    emit("parse", profile=profile_pass(lambda: run(cfg)[2], walls))
 
     if importlib.util.find_spec("cv2") is None:
         emit("parse", overlay="skipped, no cv2")
     else:
         annotated, _, _ = pipe.parse_image(image)
         emit("parse", overlay=list(annotated.shape))
-    del pipe
+    pipe.config = cfg
+    pipe.stage_ms = None
+    return pipe, image
+
+
+def profile_pass(call, walls):
+    """One more call under torch.profiler: the summed device time of all
+    kernels against the median of `walls` (ms); `call` returns its wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_prof = call()
+    # kernel rows only (an operator's row repeats its kernels' device time)
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+                  key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in rows)
+    return {
+        "wall_ms": [round(w_, 2) for w_ in walls], "wall_ms_under_profiler": round(wall_prof, 2),
+        "device_ms": round(device_ms, 3),
+        "device_idle_share": (round(1.0 - device_ms / float(np.median(walls)), 4)
+                              if rows else "not measured: the profiler gave no device time"),
+        "kernel_launches": int(sum(r[1] for r in rows)),
+        "top": [{"name": r[0][:80], "count": r[1], "ms": round(r[2], 3)} for r in rows[:12]]}
+
+
+KERNELS_OF_THE_PATH = ("nms_keep", "merge_masks", "crop_resize")
+
+
+def path_counts(path: str, counts, launches_by_path) -> None:
+    """Record one path's launch counts and fail where a kernel of the path
+    was not launched."""
+    launches_by_path[path] = dict(counts)
+    for name in KERNELS_OF_THE_PATH:
+        if counts.get(name, 0) < 1:
+            fail(f"kernel {name} was not launched during the {path} path")
+
+
+def same_but_captions(got, want):
+    """(the first field that differs other than a caption's text, or None;
+    the number of caption texts that differ)."""
+    if len(got) != len(want):
+        return f"{len(got)} elements against {len(want)}", 0
+    flips = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        for k in ("type", "bbox", "interactivity", "source"):
+            if a[k] != b[k]:
+                return f"element {i} {k}: {a[k]} against {b[k]}", flips
+        if a["source"] == "box_yolo_content_yolo":  # a captioned slot
+            if a["content"] is None or b["content"] is None:
+                return f"element {i}: a captioned slot without a caption", flips
+            flips += a["content"] != b["content"]
+        elif a["content"] != b["content"]:
+            return f"element {i} OCR text: {a['content']!r} against {b['content']!r}", flips
+    return None, flips
+
+
+BATCH_SHAPES = ((1080, 1920), (1080, 1920), (768, 1366), (1440, 2560))
+
+
+def phase_batch(seed: int, pipe, launches_by_path):
+    """parse_batch over four screenshots of three raw buckets against
+    parse_image of each."""
+    images = [synthetic_screenshot(np.random.default_rng(seed + 21 + i), h, w)
+              for i, (h, w) in enumerate(BATCH_SHAPES)]
+    cap = pipe.captioner
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pipe.parse_batch(images)  # warm-up: the new buckets' first launches
+        torch.cuda.synchronize()
+        calls = cap.generate_calls
+        reset_counts()
+        batched = pipe.parse_batch(images)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        generate_calls = cap.generate_calls - calls
+        chunks = list(pipe.last_decode_chunks)
+        single, single_counts, need = [], {}, []
+        for img in images:
+            reset_counts()
+            single.append(pipe.parse_image(img))
+            need.append(pipe.last_counts["cap_need"])
+            for k, v in all_counts().items():
+                single_counts[k] = single_counts.get(k, 0) + v
+    path_counts("batch", counts, launches_by_path)
+    flips = []
+    for i, ((_, _, eb), (_, _, es)) in enumerate(zip(batched, single)):
+        bad, n = same_but_captions(eb, es)
+        if bad:
+            fail(f"batch: image {i} differs from its parse_image: {bad}")
+        flips.append(n)
+    slots = sum(need)
+    want_chunks = -(-slots // pipe._DECODE_CHUNK)
+    emit("batch", shapes=[list(i.shape) for i in images], elements=[len(e) for _, _, e in batched],
+         caption_slots=need, decode_chunks=chunks, generate_calls=generate_calls,
+         caption_texts_differing=flips, caption_texts=sum(
+             e["source"] == "box_yolo_content_yolo" for _, _, el in batched for e in el),
+         launches=counts, launches_of_the_four_parse_images=single_counts)
+    if slots == 0:
+        fail("batch: no image needed a caption, so the batched decode never ran")
+    if generate_calls != want_chunks or sum(chunks) != slots or len(chunks) != want_chunks:
+        fail(f"batch: {generate_calls} generate calls over chunks {chunks} for {slots} slots "
+             f"(want {want_chunks} of at most {pipe._DECODE_CHUNK})")
+    n = len(images)
+    if counts["nms_keep"] != n or counts["merge_masks"] != n:
+        fail(f"batch: nms_keep {counts['nms_keep']}, merge_masks {counts['merge_masks']} "
+             f"launches for {n} images (want one each per image)")
+    if any(counts[k] != single_counts.get(k, 0) for k in KERNELS_OF_THE_PATH):
+        fail(f"batch: launches {counts} differ from the four parse_images' {single_counts}")
+    if counts["crop_resize"] < 2 * n:
+        fail(f"batch: crop_resize launched {counts['crop_resize']} times for {n} images "
+             "(want the line grid and the caption grid of each)")
+
+    def wall(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def one_at_a_time():
+        for img in images:
+            pipe.parse_image(img)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        batch_ms = [wall(lambda: pipe.parse_batch(images)) for _ in range(3)]
+        single_ms = [wall(one_at_a_time) for _ in range(3)]
+        prof = profile_pass(lambda: wall(lambda: pipe.parse_batch(images)), batch_ms)
+    emit("batch", wall_ms={"parse_batch": [round(x, 2) for x in batch_ms],
+                           "four_parse_image": [round(x, 2) for x in single_ms]},
+         screenshots_per_s={"parse_batch": [round(n / x * 1e3, 3) for x in batch_ms],
+                            "parse_image": [round(n / x * 1e3, 3) for x in single_ms]},
+         profile=prof)
+    return images, single
+
+
+def phase_serve(seed: int, pipe, images, single, launches_by_path):
+    """The REST server over the parse's pipeline, 8 concurrent requests."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from omniparser_tpu_torch.config import ServerConfig
+    from omniparser_tpu_torch.serving import OmniparserServer
+    from omniparser_tpu_torch.utils.image import encode_image_base64
+
+    extra = [synthetic_screenshot(np.random.default_rng(seed + 31 + i)) for i in range(4)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = [e for _, _, e in single] + [pipe.parse_image(img)[2] for img in extra]
+    bodies = [json.dumps({"base64_image": encode_image_base64(img)}).encode()
+              for img in list(images) + extra]
+    srv = OmniparserServer(pipe.config, ServerConfig(port=0, batch_window_ms=50, max_batch=8),
+                           pipeline=pipe)
+    serving = threading.Thread(target=srv.serve_forever, kwargs={"host": "127.0.0.1"},
+                               daemon=True)
+    serving.start()
+    t0 = time.perf_counter()
+    while srv._httpd is None or not srv._httpd.server_address[1]:
+        if time.perf_counter() - t0 > 30:
+            fail("serve: the server did not start")
+        time.sleep(0.01)
+    base = f"http://127.0.0.1:{srv._httpd.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.status, json.loads(r.read())
+
+    def post(body):
+        req = urllib.request.Request(base + "/parse/", body,
+                                     {"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = r.status, json.loads(r.read())
+        return (time.perf_counter() - t) * 1e3, out
+
+    status, probe = get("/probe/")
+    if status != 200 or "ready" not in probe.get("message", ""):
+        fail(f"serve: /probe/ answered {status} {probe}")
+    reset_counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(bodies)) as ex:
+        answers = list(ex.map(post, bodies))
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = all_counts()
+    status, metrics = get("/metrics")
+    srv.shutdown()
+    serving.join(30)
+    path_counts("serve", counts, launches_by_path)
+    flips = []
+    for i, (_, (code, body)) in enumerate(answers):
+        if code != 200:
+            fail(f"serve: request {i} answered {code}")
+        if set(body) != {"som_image_base64", "parsed_content_list", "latency"}:
+            fail(f"serve: request {i} answered the keys {sorted(body)}")
+        bad, n = same_but_captions(body["parsed_content_list"], want[i])
+        if bad:
+            fail(f"serve: request {i} differs from its image's parse_image: {bad}")
+        flips.append(n)
+    sizes = metrics["histograms"].get("parse_batch_size", {})
+    lat = sorted(ms for ms, _ in answers)
+    emit("serve", requests=len(bodies), http_status=status,
+         batches=sizes.get("count"), requests_batched=sizes.get("sum"),
+         latency_ms={"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99)),
+                     "all": [round(x, 2) for x in lat]},
+         requests_per_s=len(bodies) / total_ms * 1e3, wall_ms=round(total_ms, 2),
+         caption_texts_differing=flips, caption_texts=sum(
+             e["source"] == "box_yolo_content_yolo" for el in want for e in el),
+         launches=counts, server_seconds={k: metrics["histograms"][k]["mean"] for k in sorted(
+             metrics["histograms"]) if k.endswith("_seconds")},
+         shutdown={"serve_thread_alive": serving.is_alive(),
+                   "batcher_alive": srv.batcher._thread.is_alive(),
+                   "queued": srv.batcher._queue.qsize()})
+    if not sizes or not sizes.get("sum", 0) > sizes.get("count", 0):
+        fail(f"serve: no batch of more than one request formed ({sizes})")
+    if serving.is_alive() or srv.batcher._thread.is_alive() or srv.batcher._queue.qsize():
+        fail("serve: the server did not shut down cleanly")
+
+
+# tests/test_quant.py's bounds on the int8 logits, over the float logits' std
+INT8_MAX_DELTA = 0.35
+INT8_MEAN_DELTA = 0.05
+
+
+def phase_int8(pipe, image, launches_by_path):
+    """The int8 captioner quantized from the parse's captioner's weights."""
+    from omniparser_tpu_torch.models.florence2 import FlorenceCaptioner
+    from omniparser_tpu_torch.models.quant import QLinear, resident_bytes
+
+    fp = pipe.captioner
+    t0 = time.perf_counter()
+    state = {k: v.float().cpu() for k, v in fp.model.state_dict().items()}
+    q8 = FlorenceCaptioner(dataclasses.replace(fp.config, quant="int8"), fp.dims, state,
+                           device=pipe.device)
+    del state
+    build_s = time.perf_counter() - t0
+    lm = q8.model.language_model
+    projs = [m for i in range(fp.dims.decoder_layers)
+             for layer in [getattr(lm, f"decoder_layer{i}")]
+             for m in (layer.self_attn.q_proj, layer.self_attn.k_proj, layer.self_attn.v_proj,
+                       layer.self_attn.out_proj, layer.encoder_attn.q_proj,
+                       layer.encoder_attn.k_proj, layer.encoder_attn.v_proj,
+                       layer.encoder_attn.out_proj, layer.fc1, layer.fc2)]
+    if not all(isinstance(m, QLinear) and m.weight.dtype == torch.int8 for m in projs):
+        fail("int8: a decoder projection is not int8")
+    if lm.lm_head_kernel.dtype != torch.int8 or hasattr(lm, "shared"):
+        fail("int8: the LM head is not int8, or the float shared table is still there")
+
+    # the parse's own caption crops
+    ctx = pipe._stage_upload(image)
+    ctx["ocr_fut"] = pipe.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        crops = pipe._stage_dispatch(ctx, None, None)
+    pipe._download(ctx)
+    need = int(ctx["out"]["cap_valid"].sum())
+    crops = crops[:max(need, 1)]
+    start = torch.full((crops.shape[0], 1), fp.dims.decoder_start_token_id, dtype=torch.int64,
+                       device=crops.device)
+
+    def first_step(cap):
+        prompt = torch.from_numpy(np.tile(cap.prompt_ids[None], (crops.shape[0], 1)))
+        prompt = prompt.to(crops.device)
+        with torch.no_grad():
+            return cap.model(cap.preprocess(crops), prompt, start)[:, -1].float()
+
+    ref, got = first_step(fp), first_step(q8)
+    std = float(ref.std()) + 1e-6
+    d_max, d_mean = float((got - ref).abs().max()) / std, float((got - ref).abs().mean()) / std
+    argmax_same = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+
+    kb = fp.config.batch_size
+    slots = crops[torch.arange(kb, device=crops.device) % crops.shape[0]]
+
+    def decode_ms(cap):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cap.generate(slots)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    # the shipped int8 product (16-bit on the tensor cores, float32 out)
+    # against the float32 GEMM of the converted operands, in turns
+    from omniparser_tpu_torch.models import quant as quant_ops
+
+    shipped = quant_ops.product_f32
+
+    def gemm_f32(x, w):
+        return torch.matmul(x.float(), w.float().t())
+
+    xs = torch.randn((kb, fp.dims.d_model), generator=torch.Generator().manual_seed(5))
+    xs = xs.to(crops.device, fp.model.language_model._dtype())
+    ws = lm.decoder_layer0.fc1.weight.to(xs.dtype)
+    product_err = float((shipped(xs, ws) - gemm_f32(xs, ws)).abs().max())
+    product_scale = float(gemm_f32(xs, ws).abs().max())
+    runs = (("fp", fp, shipped), ("int8", q8, shipped), ("int8_float32_gemm", q8, gemm_f32))
+    decode = {name: [] for name, _, _ in runs}
+    decode_profile = {}
+    try:
+        for i in range(6):  # the first round is a warm-up
+            for name, cap, form in runs:
+                quant_ops.product_f32 = form
+                ms = decode_ms(cap)
+                if i:
+                    decode[name].append(round(ms, 2))
+        for name, cap, form in runs:
+            quant_ops.product_f32 = form
+            prof = profile_pass(lambda c=cap: decode_ms(c), decode[name])
+            decode_profile[name] = {k: prof[k] for k in (
+                "device_ms", "kernel_launches", "device_idle_share")}
+            decode_profile[name]["top"] = prof["top"][:4]
+    finally:
+        quant_ops.product_f32 = shipped
+
+    pipe.captioner = pipe._florence = q8
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            reset_counts()
+            _, elements = pipe.parse_elements(image)
+            torch.cuda.synchronize()
+            counts = all_counts()
+        kb_run = pipe.last_counts["kb"]
+    finally:
+        pipe.captioner = pipe._florence = fp
+    path_counts("int8", counts, launches_by_path)
+    captioned = [e for e in elements if e["source"] == "box_yolo_content_yolo"]
+    emit("int8", build_seconds=round(build_s, 2), crops=int(crops.shape[0]),
+         first_step_logits={"max_abs_delta_over_std": d_max, "mean_abs_delta_over_std": d_mean,
+                            "bounds": [INT8_MAX_DELTA, INT8_MEAN_DELTA],
+                            "argmax_agreement": argmax_same},
+         resident_bytes={"fp": resident_bytes(fp.model), "int8": resident_bytes(q8.model),
+                         "fp_dtype": fp.config.dtype},
+         decode_ms_at_kb=dict(kb=kb, **decode), decode_profile=decode_profile,
+         int8_product={"form": "torch.mm(bf16, bf16, out_dtype=float32)" if xs.dtype ==
+                       torch.bfloat16 else str(xs.dtype), "max_abs_diff_to_float32_gemm":
+                       product_err, "max_abs_value": product_scale},
+         parse_elements={"elements": len(elements), "kb": kb_run, "captioned": len(captioned),
+                         "sample": captioned[:2]},
+         launches=counts)
+    if not (d_max < INT8_MAX_DELTA and d_mean < INT8_MEAN_DELTA):
+        fail(f"int8: first-step logits off the float ones by max {d_max:.4f}, mean "
+             f"{d_mean:.4f} of their std (bounds {INT8_MAX_DELTA}, {INT8_MEAN_DELTA})")
+    if not product_err <= 1e-4 * product_scale:  # the same exact products, summed in another order
+        fail(f"int8: the card's product differs from the float32 GEMM by {product_err} "
+             f"(values up to {product_scale})")
+    if kb_run < 1 or not captioned or any(e["content"] is None for e in captioned):
+        fail("int8: the parse with the int8 captioner did not decode")
+    del q8
     torch.cuda.empty_cache()
 
 
@@ -933,6 +1292,37 @@ def phase_parity(seed: int):
     for k, v in close.items():
         if not v <= PARITY_ATOL[k]:
             fail(f"parity_on_card: {k} differs by {v} (at most {PARITY_ATOL[k]} allowed)")
+    # parse_batch against parse_image on the card in float32 with TF32 off:
+    # the phase-batch check without bfloat16 near-ties in the decode.  The
+    # default text threshold, so that icons without OCR text need captions.
+    wit = SOMPipeline(
+        dataclasses.replace(cfg, ocr=dataclasses.replace(
+            cfg.ocr, text_threshold=OcrConfig().text_threshold)),
+        device="cuda", captioner_dims=dims,
+        detector_state=cpu.det_module.state_dict(),
+        ocr_states=(cpu.ocr.det.state_dict(), cpu.ocr.rec.state_dict()),
+        captioner_state=cpu.captioner.model.state_dict())
+    images = [synthetic_screenshot(np.random.default_rng(seed + 21 + i), h, w)
+              for i, (h, w) in enumerate(BATCH_SHAPES)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        batched = wit.parse_batch(images)
+        chunks = list(wit.last_decode_chunks)
+        single = [wit.parse_image(img) for img in images]
+    flips = []
+    for i, ((_, _, eb), (_, _, es)) in enumerate(zip(batched, single)):
+        bad, n = same_but_captions(eb, es)
+        if bad:
+            fail(f"parity_on_card: float32 parse_batch image {i} differs from its "
+                 f"parse_image: {bad}")
+        flips.append(n)
+    captioned = sum(e["source"] == "box_yolo_content_yolo" for _, _, el in single for e in el)
+    emit("parity_on_card", check="parse_batch against parse_image, float32, TF32 off",
+         shapes=[list(i.shape) for i in images], decode_chunks=chunks,
+         caption_texts_differing=flips, caption_texts=captioned)
+    if not captioned or sum(chunks) == 0:
+        fail("parity_on_card: the float32 parse_batch decoded no caption")
+    del wit
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     del gpu
     torch.cuda.empty_cache()
@@ -948,7 +1338,14 @@ def main() -> None:
     smi_line = phase_device()
     phase_build()
     records = phase_kernels(args.seed)
-    phase_parse(args.seed, records)
+    pipe, image = phase_parse(args.seed, records)
+    launches_by_path = {"parse": {r["name"]: r["launches"] for r in records}}
+    images, single = phase_batch(args.seed, pipe, launches_by_path)
+    phase_serve(args.seed, pipe, images, single, launches_by_path)
+    phase_int8(pipe, image, launches_by_path)
+    emit("launches", by_path=launches_by_path)
+    del pipe, single
+    torch.cuda.empty_cache()
     phase_parity(args.seed)
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi_line, flush=True)

@@ -15,6 +15,11 @@ Every entry point takes ``device=`` and defaults to the card:
     from omniparser_tpu_torch import Omniparser, PipelineConfig
     parser = Omniparser(PipelineConfig())            # device="cuda"
     som_image_b64, elements = parser.parse(image_base64)
+
+Several screenshots share one caption decode through
+``parser.pipeline.parse_batch(images)``; ``python -m
+omniparser_tpu_torch.serving --port 8000`` serves the REST contract with a
+micro-batcher in front of ``parse_batch``.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Configuration dataclasses for the omniparser_tpu_torch pipeline.
 
-The same parse-side dataclasses, fields and defaults as the JAX package's
-``config.py`` (this package keeps its own copy and imports nothing of
-that package), so one set of settings describes a parse in either.
+The same parse-side and serving dataclasses, fields and defaults as the
+JAX package's ``config.py`` (this package keeps its own copy and imports
+nothing of that package), so one set of settings describes a parse in
+either.
 Defaults mirror the reference server's hardcoded values:
 box_threshold=0.05, iou_threshold=0.7, caption batch 128, text_threshold=0.8.
 """
@@ -44,7 +45,8 @@ class CaptionerConfig:
     max_new_tokens: int = 20
     prompt: str = "<CAPTION>"
     dtype: str = "bfloat16"
-    # 'none' = floating-point decode; 'int8' is not ported yet
+    # 'none' = floating-point decode; 'int8' = weight-only int8 decoder and
+    # LM head with per-channel float32 scales (models/quant.py)
     quant: str = "none"
     # decode captions in a second step over only the smallest power-of-2
     # slot bucket that covers this image's content-less icons (compaction
@@ -127,3 +129,15 @@ class PipelineConfig:
     detector_weights: Optional[str] = "auto"
     captioner_weights: Optional[str] = "auto"
     ocr_weights: Optional[str] = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    """Serving layer: the REST server's address and its micro-batcher."""
+
+    host: str = "0.0.0.0"
+    port: int = 8000
+    # micro-batching scheduler: collect up to max_batch requests within
+    # batch_window_ms of the first before one parse_batch call
+    batch_window_ms: float = 5.0
+    max_batch: int = 8

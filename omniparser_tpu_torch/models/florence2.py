@@ -6,7 +6,10 @@
     temporal average-pool feature sources, linear projection to d_model;
   * BART-family language model — 6+6 layers, d=768, learned positions with
     the BART +2 offset, shared embeddings, tied LM head;
-  * greedy KV-cache decode over max_new_tokens steps.
+  * greedy KV-cache decode over max_new_tokens steps;
+  * ``quant=True``: the decoder's projections and the LM head hold int8
+    weights with float32 scales (``models/quant.py``), and token lookups
+    read int8 rows of the head's table.
 
 Activations are channel-last ([B, N, C] tokens, [B, H, W, C] maps) as in
 the JAX package, and module names follow its parameter tree so that
@@ -26,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from omniparser_tpu_torch.config import CaptionerConfig
+from omniparser_tpu_torch.models import quant as quant_ops
 from omniparser_tpu_torch.models.ocr import LN_EPS, layer_norm_f32
 
 
@@ -251,18 +255,24 @@ class Florence2VisionEncoder(nn.Module):
 # --------------------------------------------------------------------- #
 
 
+def _dense(quant: bool):
+    return quant_ops.QLinear if quant else nn.Linear
+
+
 class BartAttention(nn.Module):
     """Multi-head attention with optional KV cache (decode) and cross-attn.
     For cross-attention during decode, pass `kv_heads=(k, v)` (head-split,
-    computed once from the encoder states via `project_kv`)."""
+    computed once from the encoder states via `project_kv`).  quant: int8
+    weight-only projections."""
 
-    def __init__(self, d_model: int, heads: int):
+    def __init__(self, d_model: int, heads: int, quant: bool = False):
         super().__init__()
         self.d_model, self.heads = d_model, heads
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        dense = _dense(quant)
+        self.q_proj = dense(d_model, d_model)
+        self.k_proj = dense(d_model, d_model)
+        self.v_proj = dense(d_model, d_model)
+        self.out_proj = dense(d_model, d_model)
 
     def _split(self, t):
         return t.reshape(t.shape[0], t.shape[1], self.heads, self.d_model // self.heads)
@@ -309,14 +319,15 @@ class BartEncoderLayer(nn.Module):
 
 
 class BartDecoderLayer(nn.Module):
-    def __init__(self, d: FlorenceDims):
+    def __init__(self, d: FlorenceDims, quant: bool = False):
         super().__init__()
-        self.self_attn = BartAttention(d.d_model, d.attn_heads)
+        dense = _dense(quant)
+        self.self_attn = BartAttention(d.d_model, d.attn_heads, quant)
         self.self_attn_layer_norm = _ln(d.d_model)
-        self.encoder_attn = BartAttention(d.d_model, d.attn_heads)
+        self.encoder_attn = BartAttention(d.d_model, d.attn_heads, quant)
         self.encoder_attn_layer_norm = _ln(d.d_model)
-        self.fc1 = nn.Linear(d.d_model, d.ffn_dim)
-        self.fc2 = nn.Linear(d.ffn_dim, d.d_model)
+        self.fc1 = dense(d.d_model, d.ffn_dim)
+        self.fc2 = dense(d.ffn_dim, d.d_model)
         self.final_layer_norm = _ln(d.d_model)
 
     def forward(self, x, enc, self_mask, cross_mask, cache=None, cache_index=None,
@@ -331,12 +342,25 @@ class BartDecoderLayer(nn.Module):
 
 
 class Florence2LM(nn.Module):
-    """BART-style encoder/decoder over (image tokens ++ prompt tokens)."""
+    """BART-style encoder/decoder over (image tokens ++ prompt tokens).
 
-    def __init__(self, dims: FlorenceDims = BASE):
+    quant: int8 weight-only decoder and LM head.  The encoder runs once per
+    generate; the decoder re-reads its weights every step, so only it is
+    quantized.  The float ``shared`` table is then absent: the LM head
+    (``lm_head_kernel`` int8 [V, D] with ``lm_head_scale`` [V], made by
+    ``quantize_florence_state``) serves the token lookups too."""
+
+    def __init__(self, dims: FlorenceDims = BASE, quant: bool = False):
         super().__init__()
         self.dims = d = dims
-        self.shared = nn.Embedding(d.vocab_size, d.d_model)
+        self.quant = quant
+        if quant:
+            self.register_buffer(
+                "lm_head_kernel", torch.zeros((d.vocab_size, d.d_model), dtype=torch.int8))
+            self.register_buffer(
+                "lm_head_scale", torch.ones((d.vocab_size,), dtype=torch.float32))
+        else:
+            self.shared = nn.Embedding(d.vocab_size, d.d_model)
         # BART's learned positions start at offset 2
         self.encoder_embed_positions = nn.Embedding(d.max_positions + 2, d.d_model)
         self.decoder_embed_positions = nn.Embedding(d.max_positions + 2, d.d_model)
@@ -345,7 +369,7 @@ class Florence2LM(nn.Module):
         for i in range(d.encoder_layers):
             setattr(self, f"encoder_layer{i}", BartEncoderLayer(d))
         for i in range(d.decoder_layers):
-            setattr(self, f"decoder_layer{i}", BartDecoderLayer(d))
+            setattr(self, f"decoder_layer{i}", BartDecoderLayer(d, quant))
         self.final_logits_bias = nn.Parameter(torch.zeros(d.vocab_size))
 
     def _dec_layers(self) -> List[BartDecoderLayer]:
@@ -364,18 +388,36 @@ class Florence2LM(nn.Module):
             h = getattr(self, f"encoder_layer{i}")(h, m)
         return h
 
+    def _dtype(self) -> torch.dtype:
+        """The module dtype (the position tables are cast to it)."""
+        return self.decoder_embed_positions.weight.dtype
+
     def embed_tokens(self, ids):
-        return self.shared(ids)
+        if self.quant:
+            # int8 row gather, then each row times its scale, in the module dtype
+            dt = self._dtype()
+            return self.lm_head_kernel[ids].to(dt) * self.lm_head_scale[ids][..., None].to(dt)
+        # the table may be kept in float32 for the head: rows in the module dtype
+        return self.shared(ids).to(self._dtype())
 
     def cross_kvs(self, enc):
         return [layer.encoder_attn.project_kv(enc) for layer in self._dec_layers()]
 
     def lm_head(self) -> torch.Tensor:
-        """The tied head [D, V] in float32 — take it once per generate."""
+        """The head — take it once per generate: [D, V] float32, tied to
+        ``shared``; with quant, the int8 head [V, D] in the module dtype
+        (exact for |q| <= 127)."""
+        if self.quant:
+            return self.lm_head_kernel.to(self._dtype())
         return self.shared.weight.float().t()
 
     def _logits(self, h, head=None):
         head = self.lm_head() if head is None else head
+        if self.quant:
+            # the module-dtype product accumulated in float32, times the
+            # per-vocabulary-row scale, plus the bias
+            y = quant_ops.product_f32(h.to(self._dtype()), head)
+            return y * self.lm_head_scale + self.final_logits_bias.float()
         return h.float() @ head + self.final_logits_bias.float()
 
     def decode_step(self, token_ids, step: int, enc_mask, caches, cross_kvs, head=None):
@@ -406,13 +448,14 @@ class Florence2LM(nn.Module):
 
 
 class Florence2(nn.Module):
-    """Vision encoder + language model."""
+    """Vision encoder + language model; quant: int8 weight-only decoder and
+    LM head (see Florence2LM)."""
 
-    def __init__(self, dims: FlorenceDims = BASE):
+    def __init__(self, dims: FlorenceDims = BASE, quant: bool = False):
         super().__init__()
         self.dims = dims
         self.vision = Florence2VisionEncoder(dims)
-        self.language_model = Florence2LM(dims)
+        self.language_model = Florence2LM(dims, quant)
 
     def forward(self, pixel_values, prompt_ids, decoder_ids):
         """Teacher-forced forward.  pixel_values [B,H,W,3]; prompt_ids
@@ -498,28 +541,46 @@ _IMAGE_STD = (0.229, 0.224, 0.225)
 
 
 class FlorenceCaptioner:
-    """Pipeline captioner: batched crops -> greedy captions."""
+    """Pipeline captioner: batched crops -> greedy captions.
+
+    state: a float state_dict (or None for the seeded init); with
+    ``config.quant == 'int8'`` the float model is built from it and then
+    quantized (``models/quant.quantize_florence_state``).  ``generate_calls``
+    counts the batched decodes."""
 
     fusable = True
 
     def __init__(self, config: CaptionerConfig, dims: FlorenceDims = BASE, state=None,
                  tokenizer=None, generator: Optional[torch.Generator] = None,
                  device="cuda"):
+        from omniparser_tpu_torch.models.quant import quantize_florence_state
+        from omniparser_tpu_torch.utils.device import resolve_device
         from omniparser_tpu_torch.weights.init import build_module
 
-        if config.quant != "none":
-            raise NotImplementedError("int8 decode is not ported")
+        if config.quant not in ("none", "int8"):
+            raise ValueError(f"CaptionerConfig.quant must be 'none' or 'int8', "
+                             f"got {config.quant!r}")
         self.config = config
         self.dims = dims
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.generate_calls = 0
         if tokenizer is None:
             from omniparser_tpu_torch.models.tokenizer import load_tokenizer
 
             tokenizer = load_tokenizer(None)
         self.tokenizer = tokenizer
         self.prompt_ids = np.asarray(tokenizer.encode(TASK_PROMPTS[config.prompt]), np.int64)
-        self.model = build_module(Florence2(dims), state, generator,
-                                  getattr(torch, config.dtype), self.device)
+        quant = config.quant == "int8"
+        if quant:
+            # quantize the float32 weights (before any cast to the compute dtype)
+            fp = build_module(Florence2(dims), state, generator, torch.float32, "cpu")
+            state = quantize_florence_state(fp)
+            del fp
+        # the tied table and the logits bias stay float32, as the JAX model
+        # keeps them for its float32 head (lookups are cast per row)
+        self.model = build_module(Florence2(dims, quant), state, generator,
+                                  getattr(torch, config.dtype), self.device,
+                                  keep_f32=("language_model", "language_model.shared"))
         self._mean = torch.tensor(_IMAGE_MEAN, dtype=torch.float32, device=self.device)
         self._std = torch.tensor(_IMAGE_STD, dtype=torch.float32, device=self.device)
 
@@ -530,6 +591,7 @@ class FlorenceCaptioner:
     def generate(self, crops_f255: torch.Tensor):
         """(tokens [N, max_new] int32, mean log-prob [N]) for N crops."""
         n = crops_f255.shape[0]
+        self.generate_calls += 1
         prompt = torch.from_numpy(np.tile(self.prompt_ids[None], (n, 1))).to(self.device)
         return greedy_generate(self.model, self.preprocess(crops_f255), prompt,
                                self.config.max_new_tokens, with_scores=True)

@@ -206,12 +206,13 @@ class TorchOCR:
 
     def __init__(self, config: OcrConfig, device="cuda", det_state=None,
                  rec_state=None, generator: Optional[torch.Generator] = None):
+        from omniparser_tpu_torch.utils.device import resolve_device
         from omniparser_tpu_torch.weights.init import build_module
 
         if config.arch != "native":
             raise NotImplementedError(f"OCR arch {config.arch!r} is not ported")
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.charset = CHARSET
         dtype = getattr(torch, config.dtype)
         self.det = build_module(TextDetector(), det_state, generator, dtype, self.device,

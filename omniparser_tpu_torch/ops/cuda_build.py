@@ -9,6 +9,10 @@ and the stream from ``torch.cuda.current_stream()``.
 
 Nothing here runs at import: a machine without ``nvcc`` can import every
 module of the package and use the plain versions on CPU tensors.
+
+Building and loading hold one module lock: the server's batcher thread may
+reach its first kernel while the main thread is still warming up, and
+two builds at once would race on the same output files.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -37,6 +42,8 @@ NVCC_FLAGS = [
 SOURCES = ("nms.cu", "overlap.cu", "crop.cu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# re-entrant: load() holds it while it calls build_all()
+_lock = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -58,6 +65,11 @@ def build_all(verbose: bool = False) -> Dict[str, object]:
     """Compile every source whose library is missing (one nvcc process per
     source, all started together) and load all of them.  Returns
     {'seconds', 'built': [...], 'cached': [...], 'log': str}."""
+    with _lock:
+        return _build_all_locked(verbose)
+
+
+def _build_all_locked(verbose: bool) -> Dict[str, object]:
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs: List[tuple] = []
@@ -70,7 +82,7 @@ def build_all(verbose: bool = False) -> Dict[str, object]:
             cached.append(name)
             continue
         nvcc = nvcc or find_nvcc()
-        tmp = out + f".tmp{os.getpid()}"
+        tmp = out + f".tmp{os.getpid()}.{threading.get_ident()}"
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", tmp, os.path.join(CSRC_DIR, name)]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -93,9 +105,13 @@ def build_all(verbose: bool = False) -> Dict[str, object]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, building all on first use."""
-    if name not in _libs:
-        build_all()
-    return _libs[name]
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:  # a second caller waits for the first one's build
+            if name not in _libs:
+                build_all()
+            lib = _libs[name]
+    return lib
 
 
 def current_stream() -> ctypes.c_void_p:

@@ -10,10 +10,18 @@
             bucket that covers the content-less icons
     host:   strings, SOM overlay, JSON
 
+``parse_batch`` runs the same per-image steps for several screenshots and
+packs every image's caption slots into one cross-image decode (chunks of
+at most ``_DECODE_CHUNK`` slots), so the decode's launch train is paid once
+per batch instead of once per screenshot.
+
 Eager PyTorch has no compiled graph: the fused step is one plain function
 whose kernels queue on the current stream; the host reads a device value
 only where control flow needs it (the label propagation's fixed point, the
-recogniser's block count) and at the download.
+recogniser's block count) and at the download.  Those reads are also why
+``parse_batch`` cannot overlap one image's device work with the next
+image's dispatch as the JAX package's asynchronous dispatch does: each
+image's fused step has run by the time the host reaches the next one.
 
 Element schema and ordering match the reference exactly:
   {'type': 'text'|'icon', 'bbox': [x1,y1,x2,y2] normalised, 'interactivity',
@@ -28,7 +36,7 @@ import dataclasses
 import os
 import time
 import warnings
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +53,7 @@ from omniparser_tpu_torch.ops.preprocess import (
     pad_to_bucket,
     pick_bucket_2d,
 )
+from omniparser_tpu_torch.utils.device import resolve_device
 
 EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights", "exported")
 
@@ -243,10 +252,7 @@ class SOMPipeline:
         from omniparser_tpu_torch.weights.init import build_module
 
         self.config = config
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' but no CUDA device is available; "
-                               "pass device='cpu' to run on the CPU")
+        self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
 
         dc = config.detector
@@ -311,6 +317,8 @@ class SOMPipeline:
             raise NotImplementedError("single-step decode is not ported: keep split_decode on")
         self.last_timings: Dict[str, float] = {}
         self.last_counts: Dict[str, int] = {}
+        # parse_batch: the slots of each decode chunk of the last batch
+        self.last_decode_chunks: List[int] = []
         # set to a dict to collect the fused step's per-stage milliseconds
         # (each stage then ends with a device synchronise)
         self.stage_ms: Optional[Dict[str, float]] = None
@@ -352,6 +360,7 @@ class SOMPipeline:
         t["ocr_detect"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         crops_dev = self._stage_dispatch(ctx, box_threshold, iou_threshold)
+        self._download(ctx)
         t["device_step"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self._dispatch_decode(ctx, crops_dev)
@@ -394,8 +403,65 @@ class SOMPipeline:
             "padded_dev": torch.from_numpy(padded).to(self.device),  # the one upload
         }
 
+    def parse_batch(self, images: Sequence[np.ndarray]
+                    ) -> List[Tuple[np.ndarray, Dict[str, List[float]], List[Dict]]]:
+        """Several screenshots -> a list of parse_image tuples, in order.
+
+        Each image's upload, OCR detector and fused step are dispatched in
+        turn; then the downloads, with one batched caption decode over
+        every image's slots dispatched after the last download; each
+        image's element assembly and overlay run while that decode is
+        queued, and the captions are filled last.  Each image gets what
+        parse_image gives it."""
+        t: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        ctxs = []
+        for img in images:
+            ctx = self._stage_upload(img)
+            if self._fused_ocr:
+                ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
+            ctx["crops_dev"] = self._stage_dispatch(ctx, None, None)
+            ctxs.append(ctx)
+        t["dispatch"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        handle = None
+        for i, ctx in enumerate(ctxs):
+            self._download(ctx)
+            if i == len(ctxs) - 1:
+                handle = self._dispatch_decode_batch(ctxs)
+            ctx["icon_plain"] = self._stage_finish(ctx)
+            ctx["annotated"] = self._overlay(ctx, None)
+        t["finish"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._collect_decode_batch(handle)
+        results = []
+        for ctx in ctxs:
+            self._fill_captions(ctx, ctx.pop("icon_plain"))
+            results.append((ctx["annotated"], ctx["label_coordinates"], ctx["elements"]))
+        t["decode"] = time.perf_counter() - t0
+        self.last_timings = t
+        return results
+
+    def warmup(self, shapes: Sequence[Tuple[int, int]] = ((1080, 1920), (2160, 3840)),
+               cap_buckets: Sequence[int] = (8, 16, 32, 64, 128, 256)) -> None:
+        """Run what a first request would otherwise pay for: a parse_image
+        of a blank image per shape (builds the CUDA kernels at their first
+        launch, picks the library's algorithms), then one caption decode
+        per slot bucket that parse_batch can use (blank images need no
+        captions, so their parses never decode)."""
+        for h, w in shapes:
+            self.parse_image(np.zeros((h, w, 3), np.uint8))
+        if self._florence is not None:
+            cs = self.config.captioner.crop_size
+            for kb in cap_buckets:
+                if kb <= self._DECODE_CHUNK:
+                    tokens, _ = self._florence.generate(
+                        torch.zeros((kb, cs, cs, 3), dtype=torch.float32, device=self.device))
+                    tokens.cpu()
+
     def _stage_dispatch(self, ctx: Dict, box_threshold, iou_threshold):
-        """Run the fused step and download everything but the crops."""
+        """Run the fused step; its outputs stay on the device (in
+        ctx["out_dev"]) until _download.  Returns the caption crops."""
         cfg = self.config
         box_threshold = cfg.detector.box_threshold if box_threshold is None else box_threshold
         iou_threshold = cfg.iou_threshold if iou_threshold is None else iou_threshold
@@ -417,8 +483,12 @@ class SOMPipeline:
         crops_dev = out.pop("crops", None)  # stays on the device
         if "cc_count" in ctx:
             out["cc_count"] = ctx.pop("cc_count")
-        ctx["out"] = {k: v.cpu().numpy() for k, v in out.items()}
+        ctx["out_dev"] = out
         return crops_dev
+
+    def _download(self, ctx: Dict) -> None:
+        """The one download of a fused step's outputs (all but the crops)."""
+        ctx["out"] = {k: v.cpu().numpy() for k, v in ctx.pop("out_dev").items()}
 
     def _dispatch_decode(self, ctx: Dict, crops_dev) -> None:
         """Greedy-decode only the smallest power-of-2 slot bucket (from 8)
@@ -444,6 +514,53 @@ class SOMPipeline:
         if fut is not None:
             ctx["out"]["cap_tokens"] = fut[0].cpu().numpy()
             ctx["out"]["cap_logp"] = fut[1].cpu().numpy()
+
+    # parse_batch's cross-image caption decode: every image's needed slots
+    # (the compaction put them first) in one decode per chunk of at most
+    # this many slots, each zero-padded to a power-of-2 bucket from 8
+    _DECODE_CHUNK = 256
+
+    def _dispatch_decode_batch(self, ctxs: Sequence[Dict]):
+        """Dispatch the batched decode -> (per-chunk (tokens, logp, take)
+        on the device, per-image (ctx, offset, need)), or None."""
+        parts, offs, off = [], [], 0
+        for ctx in ctxs:
+            crops = ctx.pop("crops_dev", None)
+            if crops is None or "cap_valid" not in ctx["out"]:
+                continue
+            need = int(ctx["out"]["cap_valid"].sum())
+            if need:
+                parts.append(crops[:need])
+                offs.append((ctx, off, need))
+                off += need
+        self.last_decode_chunks = []
+        if not parts:
+            return None
+        slots = torch.cat(parts) if len(parts) > 1 else parts[0]
+        futs = []
+        watch = _Stopwatch(self.stage_ms, self.device)
+        for s in range(0, off, self._DECODE_CHUNK):
+            sel = slots[s:s + self._DECODE_CHUNK]
+            take = sel.shape[0]
+            kb = 8
+            while kb < take:
+                kb *= 2
+            if take < kb:
+                sel = torch.cat([sel, sel.new_zeros((kb - take,) + tuple(sel.shape[1:]))])
+            futs.append((*self._florence.generate(sel), take))
+            self.last_decode_chunks.append(take)
+        watch.lap("decode")
+        return futs, offs
+
+    def _collect_decode_batch(self, handle) -> None:
+        if handle is None:
+            return
+        futs, offs = handle
+        tokens = np.concatenate([tok.cpu().numpy()[:n] for tok, _, n in futs])
+        logp = np.concatenate([lp.cpu().numpy()[:n] for _, lp, n in futs])
+        for ctx, off, need in offs:
+            ctx["out"]["cap_tokens"] = tokens[off:off + need]
+            ctx["out"]["cap_logp"] = logp[off:off + need]
 
     def _fill_captions(self, ctx: Dict, icon_plain) -> None:
         """Fill content-less icon elements with captions: decoded tokens

@@ -16,7 +16,12 @@ a leaf by its kind:
   * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
     (the LM head is tied to it in the module, not stored);
   * bare parameters (position tables, the image projection, the logits
-    bias) keep their name and layout.
+    bias) keep their name and layout;
+  * the int8 decode tree (``models/quant.py`` of the JAX package): a
+    ``QDense``'s int8 ``kernel`` [in, out] -> int8 ``weight`` [out, in], its
+    ``scale`` stays ``scale``; ``lm_head_kernel``/``lm_head_scale`` keep
+    their name and layout.  int8 leaves stay int8, every other leaf
+    becomes float32.
 
 Every converter checks the result against the target module: a key the
 module lacks, a key it still needs, or a shape that differs raises with
@@ -55,7 +60,7 @@ _LEAF = {"scale": "weight", "embedding": "weight", "mean": "running_mean",
          "var": "running_var"}
 
 
-def _convert_leaf(path: str, parent: str, leaf: str, arr: np.ndarray):
+def _convert_leaf(path: str, parent: str, leaf: str, arr: np.ndarray, quantized: bool):
     if leaf == "kernel":
         if arr.ndim == 4:  # conv HWIO -> OIHW
             return "weight", arr.transpose(3, 2, 0, 1)
@@ -66,6 +71,8 @@ def _convert_leaf(path: str, parent: str, leaf: str, arr: np.ndarray):
                 return "weight", arr.reshape(-1, arr.shape[-1]).T
             return "weight", arr.reshape(arr.shape[0], -1).T  # [in, heads, hd]
         raise ValueError(f"{path}: kernel of rank {arr.ndim}")
+    if leaf == "scale" and quantized:  # a QDense's per-channel scale
+        return "scale", arr
     if leaf == "bias":
         return "bias", arr.reshape(-1)
     return _LEAF.get(leaf, leaf), arr
@@ -77,20 +84,25 @@ def convert_variables(flat: Mapping[str, np.ndarray], module: nn.Module
     want = {k: v for k, v in module.state_dict().items()
             if not k.endswith("num_batches_tracked")}
     out: Dict[str, torch.Tensor] = {}
+    # the modules whose kernel is int8: their 'scale' is a QDense scale
+    quantized = {p.rsplit("/", 1)[0] for p, a in flat.items()
+                 if p.endswith("/kernel") and np.asarray(a).dtype == np.int8}
     for path, arr in flat.items():
         parts = path.split("/")
         if parts[0] not in ("params", "batch_stats"):
             raise KeyError(f"{path}: unknown collection {parts[0]!r}")
         parts = parts[1:]
         parent = parts[-2] if len(parts) > 1 else ""
-        leaf, value = _convert_leaf(path, parent, parts[-1], np.asarray(arr))
+        leaf, value = _convert_leaf(path, parent, parts[-1], np.asarray(arr),
+                                    path.rsplit("/", 1)[0] in quantized)
         key = ".".join(parts[:-1] + [leaf])
         if key not in want:
             raise KeyError(f"left-over key {path!r}: the module has no {key!r}")
         if tuple(value.shape) != tuple(want[key].shape):
             raise ValueError(f"{path}: shape {tuple(value.shape)} after conversion, "
                              f"the module's {key!r} is {tuple(want[key].shape)}")
-        out[key] = torch.tensor(value, dtype=torch.float32)
+        out[key] = torch.tensor(
+            value, dtype=torch.int8 if value.dtype == np.int8 else torch.float32)
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f"missing keys (no variable maps to them): {missing[:8]}"
@@ -125,6 +137,10 @@ def convert_text_recognizer(flat, width: int = 64, layers: int = 2, heads: int =
 
 
 def convert_florence2(flat, dims=None):
+    """A float tree, or the JAX package's int8 decode tree (it holds
+    ``lm_head_kernel``), for ``Florence2(dims)`` or ``Florence2(dims,
+    quant=True)``."""
     from omniparser_tpu_torch.models.florence2 import BASE, Florence2
 
-    return convert_variables(flat, _meta(lambda: Florence2(dims or BASE)))
+    quant = any(k.endswith("/lm_head_kernel") for k in flat)
+    return convert_variables(flat, _meta(lambda: Florence2(dims or BASE, quant)))

@@ -57,7 +57,13 @@ def seeded_init_(module: nn.Module, generator: Optional[torch.Generator]) -> nn.
 def cast_compute_dtype(module: nn.Module, dtype: torch.dtype,
                        keep_f32: Sequence[str] = ()) -> nn.Module:
     """Cast parameters to `dtype`, except the norm layers (computed in
-    float32) and the direct children named in `keep_f32` (float32 heads)."""
+    float32) and the modules named in `keep_f32` (dotted paths; their own
+    parameters, not their children's, stay float32: float32 heads).
+    Modules that keep int8 weights in buffers (``models.quant.QLinear``)
+    are not cast; their ``compute_dtype`` becomes `dtype`."""
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
     if dtype == torch.float32:
         return module
     for name, m in module.named_modules():

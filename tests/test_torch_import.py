@@ -58,7 +58,8 @@ def test_chip_smoke_imports_none_of_them():
 
 
 @pytest.mark.parametrize("rel", ["annotate.py", "utils/image.py", "models/tokenizer.py",
-                                 "pipeline.py"])
+                                 "pipeline.py", "serving/http.py", "serving/batcher.py",
+                                 "utils/metrics.py", "models/quant.py"])
 def test_optional_host_libraries_are_imported_inside_functions(rel):
     """cv2, PIL and regex may appear only inside function bodies."""
     with open(os.path.join(ROOT, "omniparser_tpu_torch", rel)) as f:
@@ -84,6 +85,21 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         SOMPipeline(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Omniparser(cfg)
+
+    from omniparser_tpu_torch.models.florence2 import FlorenceCaptioner, FlorenceDims
+    from omniparser_tpu_torch.models.ocr import TorchOCR
+    from omniparser_tpu_torch.serving import OmniparserServer, main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlorenceCaptioner(CaptionerConfig(), FlorenceDims(d_model=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchOCR(OcrConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OmniparserServer(cfg)  # no pipeline given: it builds one, on the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--port", "0"])  # --device defaults to cuda
+    with pytest.raises(NotImplementedError, match="A.10"):
+        main(["--mesh", "4,2"])
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -22,7 +22,7 @@ from omniparser_tpu.models import yolov8 as jyolo
 from omniparser_tpu.pipeline import SOMPipeline as JaxPipeline
 from omniparser_tpu.train.synth_gui import render_gui_scene
 from omniparser_tpu_torch import config as tcfg
-from omniparser_tpu_torch.models.florence2 import FlorenceDims
+from omniparser_tpu_torch.models.florence2 import FlorenceCaptioner, FlorenceDims
 from omniparser_tpu_torch.pipeline import Omniparser, SOMPipeline
 from omniparser_tpu_torch.weights import convert
 
@@ -131,6 +131,72 @@ def test_omniparser_facade_round_trip(pipelines):
     assert decode_base64_image(som_b64).shape == img.shape
     assert base64.b64decode(som_b64)[:4] == b"\x89PNG"
     assert elements == tp.parse_elements(img)[1]
+
+
+def _same_elements(got, want, atol):
+    """Boxes within atol (normalised units); every other field exact."""
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a["type"], a["source"], a["interactivity"], a["content"]) == \
+               (b["type"], b["source"], b["interactivity"], b["content"])
+        np.testing.assert_allclose(a["bbox"], b["bbox"], rtol=0, atol=atol)
+
+
+def test_parse_batch_matches_jax(pipelines):
+    """parse_batch of the JAX package and of the port on three scenes of
+    two sizes, shipped weights, float32: boxes to 1e-5, types, sources,
+    interactivity, OCR texts and captions exact."""
+    jp, tp = pipelines
+    images = [_scene(3), _scene(11),
+              np.asarray(render_gui_scene(np.random.default_rng(5), size=288)[0])]
+    want = jp.parse_batch(images)
+    got = tp.parse_batch(images)
+    assert len(got) == len(want) == 3
+    for (t_ann, t_labels, t_el), (j_ann, j_labels, j_el) in zip(got, want):
+        _same_elements(t_el, j_el, 1e-5)
+        assert set(t_labels) == set(j_labels) and t_ann.shape == j_ann.shape
+    assert sum(len(e) for _, _, e in got) >= 12
+    # one decode for the batch's slots, over every image's captions
+    assert len(tp.last_decode_chunks) == 1
+    assert tp.last_decode_chunks[0] == sum(
+        e["source"] == "box_yolo_content_yolo" for _, _, el in got for e in el)
+
+
+def test_parse_batch_equals_parse_image_per_image(rng):
+    """The port's own invariant (its twin of tests/test_pipeline.py's
+    batched-decode test, at tiny dims): parse_batch gives each image
+    exactly what parse_image gives it, overlay included, with the decode
+    chunk lowered to 4 slots so that the batch decodes in several chunks."""
+    tiny = FlorenceDims(embed_dims=(8, 16, 32, 64), num_heads=(1, 2, 4, 8),
+                        num_groups=(1, 2, 4, 8), depths=(1, 1, 1, 1), window_size=4,
+                        d_model=32, encoder_layers=1, decoder_layers=2, attn_heads=4,
+                        ffn_dim=64, vocab_size=160, max_positions=64)
+    cfg = tcfg.PipelineConfig(
+        detector=tcfg.DetectorConfig(default_imgsz=128, max_detections=16, box_threshold=0.01,
+                                     dtype="float32"),
+        captioner=tcfg.CaptionerConfig(batch_size=8, crop_size=32, max_new_tokens=4,
+                                       dtype="float32"),
+        ocr=tcfg.OcrConfig(backend="null"), detector_weights=None)
+    cap = FlorenceCaptioner(cfg.captioner, tiny, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():  # a wide embedding: captions that differ between crops
+        cap.model.language_model.shared.weight.normal_(
+            0, 1.0, generator=torch.Generator().manual_seed(2))
+    p = SOMPipeline(cfg, device="cpu", captioner=cap)
+    p._DECODE_CHUNK = 4
+    images = [rng.integers(0, 255, (100, 120, 3), dtype=np.uint8) for _ in range(3)]
+    images.append(rng.integers(0, 255, (90, 200, 3), dtype=np.uint8))
+    calls = cap.generate_calls
+    batched = p.parse_batch(images)
+    assert cap.generate_calls - calls == len(p.last_decode_chunks) >= 2
+    assert max(p.last_decode_chunks) == 4
+    captions = []
+    for img, (ann_b, labels_b, el_b) in zip(images, batched):
+        ann_s, labels_s, el_s = p.parse_image(img)
+        assert el_b == el_s and labels_b == labels_s
+        np.testing.assert_array_equal(ann_b, ann_s)
+        captions += [e["content"] for e in el_s if e["source"] == "box_yolo_content_yolo"]
+    assert sum(p.last_decode_chunks) == len(captions) and len(set(captions)) >= 2
 
 
 def test_auto_weights_raise_where_the_export_is_missing(tmp_path, monkeypatch):
