@@ -46,15 +46,28 @@ once without a card.  Phases, one JSON line each:
                   int8 product against a float32 GEMM, resident bytes and
                   decode ms of both captioners (int8 also with the float32
                   GEMM swapped in), one parse_elements through it
+  compat          the reference's two calls: the merge kernel at the host
+                  OCR slot buckets (M = 32..256) against its plain version;
+                  the parse's seeded detector and captioner written as an
+                  ultralytics state dict and an HF Florence-2 directory,
+                  loaded back through Omniparser(dict) and found equal;
+                  check_ocr_box (greedy, beam, paragraphs; a seeded TorchOCR
+                  at text threshold 0) -> get_som_labeled_img, then once more
+                  with OCR boxes made from the detector's icons (absorb, an
+                  icon inside OCR and the caption decode must all happen);
+                  parse_image with device_components and with
+                  fused_candidates off, equal to the fused parse
   parity_on_card  the fused step on the card against the same step on the
                   CPU, same weights and image, float32, reduced size; then
                   that card pipeline's parse_batch of phase batch's four
                   screenshots against its parse_image of each (caption texts
-                  that differ are counted)
+                  that differ are counted); then get_som_labeled_img on both
+                  with OCR boxes made from the CPU's icons (absorb and the
+                  icon drop must fire; every integer field equal)
 
-Each path (parse, batch, serve, int8) runs with the kernels' launch counters
-set to 0 just before it and read just after, and fails if a kernel of the path
-was not launched.  Then the card's nvidia-smi line, one {"kernels": [...]}
+Each path (parse, batch, serve, int8, compat) runs with the kernels' launch
+counters set to 0 just before it and read just after, and fails if a kernel of
+the path was not launched.  Then the card's nvidia-smi line, one {"kernels": [...]}
 line (``launches``: the parse's counts) and, last, {"ok": true, "device":
 {...}}.  Any failing phase ends the run non-zero.
 """
@@ -1090,6 +1103,395 @@ def phase_serve(seed: int, pipe, images, single, launches_by_path):
         fail("serve: the server did not shut down cleanly")
 
 
+# ------------------------------------------------------------------ #
+# upstream checkpoint formats, written from seeded weights
+# ------------------------------------------------------------------ #
+
+
+def ultralytics_state_dict(state):
+    """The port's YOLOv8 state_dict -> an ultralytics DetectionModel's keys
+    (``model.{i}...``), the inverse of weights/convert_yolo.py's layer map.
+    Both sides keep torch layouts, so only the names change."""
+    import re
+
+    from omniparser_tpu_torch.weights.convert_yolo import _LAYER_MAP
+
+    index = {name: i for i, name in _LAYER_MAP.items()}
+    out = {}
+    for key, v in state.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        top, rest = key.split(".", 1)
+        if top == "head":  # box{l}_{j} -> cv2.{l}.{j}, cls{l}_{j} -> cv3.{l}.{j}
+            kind, lvl, j, leaf = re.match(r"(box|cls)(\d)_(\d)\.(.+)$", rest).groups()
+            new = f"22.{'cv2' if kind == 'box' else 'cv3'}.{lvl}.{j}.{leaf}"
+        else:
+            new = f"{index[top]}." + re.sub(r"^m(\d+)\.", r"m.\1.", rest)
+        out["model." + new] = v.detach().float().cpu().contiguous()
+    return out
+
+
+_DAVIT_HF = {"cpe1.proj": "conv1.fn.dw", "cpe2.proj": "conv2.fn.dw", "norm1": "norm1",
+             "norm2": "norm2", "attn.qkv": "attn.qkv", "attn.proj": "attn.proj",
+             "mlp.fc1": "ffn.fn.net.fc1", "mlp.fc2": "ffn.fn.net.fc2"}
+
+
+def hf_florence_state_dict(state):
+    """The port's Florence2 state_dict -> the HF checkpoint's keys (the
+    remote-code spelling that weights/convert_florence.py reads), float32
+    numpy, with the tied ``lm_head`` alias beside ``shared``.  Both sides
+    keep torch layouts, so only the names change."""
+    import re
+
+    out = {}
+    for key, v in state.items():
+        a = v.detach().float().cpu().numpy()
+        m = re.match(r"vision\.davit\.patch_embed(\d)_(conv|norm)\.(\w+)$", key)
+        if m:
+            s, kind, leaf = m.groups()
+            out[f"vision_tower.convs.{s}.{'proj' if kind == 'conv' else 'norm'}.{leaf}"] = a
+            continue
+        m = re.match(r"vision\.davit\.stage(\d)_blk(\d+)_(spatial|channel)\.(.+)\.(\w+)$", key)
+        if m:
+            s, d, half, rest, leaf = m.groups()
+            out[f"vision_tower.blocks.{s}.{d}.{0 if half == 'spatial' else 1}."
+                f"{_DAVIT_HF[rest]}.{leaf}"] = a
+            continue
+        m = re.match(r"language_model\.(encoder|decoder)_(embed_positions|layernorm_embedding)"
+                     r"\.(\w+)$", key)
+        if m:
+            side, what, leaf = m.groups()
+            out[f"language_model.model.{side}.{what}.{leaf}"] = a
+            continue
+        m = re.match(r"language_model\.(encoder|decoder)_layer(\d+)\.(.+)$", key)
+        if m:
+            side, i, rest = m.groups()
+            out[f"language_model.model.{side}.layers.{i}.{rest}"] = a
+            continue
+        fixed = {
+            "vision.image_projection": "image_projection",
+            "vision.image_proj_norm.weight": "image_proj_norm.weight",
+            "vision.image_proj_norm.bias": "image_proj_norm.bias",
+            "vision.image_pos_embed_row": "image_pos_embed.row_embeddings.weight",
+            "vision.image_pos_embed_col": "image_pos_embed.column_embeddings.weight",
+            "vision.visual_temporal_embed": "visual_temporal_embed.pos_idx_to_embed",
+            "language_model.shared.weight": "language_model.model.shared.weight",
+        }
+        if key == "language_model.final_logits_bias":
+            out["language_model.final_logits_bias"] = a.reshape(1, -1)
+        elif key in fixed:
+            out[fixed[key]] = a
+        else:
+            raise KeyError(f"no HF spelling for {key!r}")
+    out["language_model.lm_head.weight"] = out["language_model.model.shared.weight"]
+    return out
+
+
+def write_upstream_checkpoints(directory, det_module, florence_model):
+    """An ultralytics-format detector file (``torch.save`` of a state_dict
+    under ``model.*`` keys) and an HF-format Florence-2 directory
+    (``model.safetensors`` in float32 and a ``config.json``) from the given
+    modules' weights.  Returns (detector path, captioner directory, bytes)."""
+    import os
+
+    from omniparser_tpu_torch.weights.safetensors import write_safetensors
+
+    pt = os.path.join(directory, "icon_detect", "model.pt")
+    hf = os.path.join(directory, "icon_caption")
+    os.makedirs(os.path.dirname(pt))
+    os.makedirs(hf)
+    torch.save(ultralytics_state_dict(det_module.state_dict()), pt)
+    d = florence_model.dims
+    write_safetensors(os.path.join(hf, "model.safetensors"),
+                      hf_florence_state_dict(florence_model.state_dict()))
+    with open(os.path.join(hf, "config.json"), "w") as f:
+        json.dump({"model_type": "florence2", "vision_config": {
+            "depths": list(d.depths), "dim_embed": list(d.embed_dims)},
+            "text_config": {"d_model": d.d_model, "vocab_size": d.vocab_size}}, f)
+    size = os.path.getsize(pt) + os.path.getsize(os.path.join(hf, "model.safetensors"))
+    return pt, hf, size
+
+
+def state_mismatches(got, want):
+    """Keys whose tensors differ (shape, or any value once `want` is cast
+    to `got`'s dtype) between two state_dicts, and keys only one side has."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = got[k].cpu(), want[k].cpu()
+        if a.shape != b.shape or not torch.equal(a, b.to(a.dtype)):
+            bad.append(k)
+    return bad
+
+
+def same_elements(got, want, atol: float):
+    """The first element field that differs (boxes beyond atol), or None;
+    captions are compared too, and counted apart: (field, caption flips)."""
+    if len(got) != len(want):
+        return f"{len(got)} elements against {len(want)}", 0
+    flips = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        for k in ("type", "interactivity", "source"):
+            if a[k] != b[k]:
+                return f"element {i} {k}: {a[k]} against {b[k]}", flips
+        if max(abs(x - y) for x, y in zip(a["bbox"], b["bbox"])) > atol:
+            return f"element {i} bbox: {a['bbox']} against {b['bbox']}", flips
+        if a["source"] == "box_yolo_content_yolo":
+            flips += a["content"] != b["content"]
+        elif a["content"] != b["content"]:
+            return f"element {i} content: {a['content']!r} against {b['content']!r}", flips
+    return None, flips
+
+
+def provided_ocr_boxes(icons: np.ndarray, h: int, w: int):
+    """OCR boxes (pixel xyxy ints) made from detected icons: one inside an
+    icon (its text is absorbed), one containing an icon (the icon is
+    dropped), one overlapping an icon by half, one apart from every icon.
+    The icons used are the smallest of at least 12 px a side that no
+    smaller icon suppresses and that touch each other nowhere."""
+    b = np.asarray(icons, np.float64).reshape(-1, 4)
+    wh = b[:, 2:] - b[:, :2]
+    area = wh[:, 0] * wh[:, 1]
+    lt, rb = np.maximum(b[:, None, :2], b[None, :, :2]), np.minimum(b[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(rb - lt, 0, None), axis=2)
+    with np.errstate(divide="ignore", invalid="ignore"):  # zero-area icons: never picked
+        ratio = np.maximum(inter / (area[:, None] + area[None, :] - inter + 1e-6),
+                           np.maximum(inter / area[:, None], inter / area[None, :]))
+    # icons that no smaller icon suppresses (the merge's rule at 0.9), and
+    # that touch none of the others picked
+    picked = []
+    for i in np.argsort(area, kind="stable"):
+        if wh[i, 0] < 12 or wh[i, 1] < 12:
+            continue
+        if ((ratio[i] > 0.9) & (area < area[i])).any() or (inter[i, picked] > 0).any():
+            continue
+        picked.append(int(i))
+        if len(picked) == 3:
+            break
+    if len(picked) < 3:
+        fail(f"{len(picked)} separate icons of 12 px or more to build OCR boxes on, want 3")
+    a, c, o = b[picked[0]], b[picked[1]], b[picked[2]]
+    qa, qc = (a[2:] - a[:2]) / 4, (c[2:] - c[:2]) / 5
+    boxes = [np.concatenate([a[:2] + qa, a[2:] - qa]),             # inside icon a
+             np.concatenate([c[:2] - qc, c[2:] + qc]),             # contains icon c
+             o + np.array([1, 0, 1, 0]) * (o[2] - o[0]) / 2]       # half over icon o
+    texts = ["inside", "contains", "overlaps"]
+    for y in range(0, h - 20, 10):                                 # apart from all
+        hit = next((x for x in range(0, w - 20, 10) if not (
+            (b[:, 0] < x + 20) & (b[:, 2] > x) & (b[:, 1] < y + 20) & (b[:, 3] > y)).any()), None)
+        if hit is not None:
+            boxes.append(np.array([hit, y, hit + 20, y + 20], np.float64))
+            texts.append("apart")
+            break
+    out = [[int(np.clip(round(v), 0, lim)) for v, lim in zip(bx, (w, h, w, h))] for bx in boxes]
+    return out, texts
+
+
+def parity_compat(cpu, gpu, image):
+    """get_som_labeled_img on the CPU and on the card with the same
+    weights and OCR boxes made from the CPU's own icons, so that absorb and
+    the OCR-removes-icon rule both fire: every integer field equal, boxes
+    to PARITY_ATOL['det_boxes']."""
+    from omniparser_tpu_torch import compat
+
+    h, w = image.shape[:2]
+    box_thr, nms_iou = 0.05, cpu.config.detector.nms_iou_threshold
+    icons, _, _ = compat.predict_yolo((cpu.detector, cpu.det_module), image, box_thr,
+                                      iou_threshold=nms_iou, device="cpu")
+    ocr_bbox, ocr_text = provided_ocr_boxes(icons, h, w)
+    runs = {}
+    for name, pipe in (("cpu", cpu), ("cuda", gpu)):
+        reset_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, _, elements = compat.get_som_labeled_img(
+                image, (pipe.detector, pipe.det_module), BOX_TRESHOLD=box_thr,
+                ocr_bbox=ocr_bbox, ocr_text=ocr_text, use_local_semantics=False,
+                device=pipe.device)
+        if name == "cuda":
+            torch.cuda.synchronize()
+        counts = all_counts()
+        used = [p for p in compat._PIPELINE_CACHE.values() if p.det_module is pipe.det_module]
+        runs[name] = (elements, dict(used[0].last_counts), counts)
+    (e_cpu, c_cpu, _), (e_gpu, c_gpu, launches) = runs["cpu"], runs["cuda"]
+    bad, _ = same_elements(e_gpu, e_cpu, PARITY_ATOL["det_boxes"])
+    keys = ("det_keep", "ocr_candidates", "ocr_valid", "ocr_absorbed", "icons_inside_ocr",
+            "elements")
+    emit("parity_on_card", check="compat get_som_labeled_img, CPU against card, float32, "
+         "TF32 off", icons=len(icons), ocr_bbox=ocr_bbox, ocr_text=ocr_text,
+         counts={k: {"cpu": c_cpu[k], "cuda": c_gpu[k]} for k in keys}, launches=launches,
+         differs=bad)
+    if bad:
+        fail(f"parity_on_card: compat parse differs between CPU and card: {bad}")
+    if any(c_cpu[k] != c_gpu[k] for k in keys):
+        fail("parity_on_card: compat counts differ between CPU and card")
+    if not (c_gpu["ocr_absorbed"] > 0 and c_gpu["icons_inside_ocr"] > 0):
+        fail(f"parity_on_card: the compat case absorbed {c_gpu['ocr_absorbed']} OCR boxes and "
+             f"dropped {c_gpu['icons_inside_ocr']} icons inside OCR (want both > 0)")
+    if launches["nms_keep"] != 1 or launches["merge_masks"] != 1:
+        fail(f"parity_on_card: the card's compat parse launched {launches}")
+
+
+def phase_compat(seed: int, pipe, image, cfg, launches_by_path):
+    """The reference's two calls, check_ocr_box -> get_som_labeled_img,
+    with the parse's seeded networks carried through the upstream file
+    formats, and the host-candidate OCR parses against the fused path."""
+    import os
+    import tempfile
+
+    from omniparser_tpu_torch import compat
+    from omniparser_tpu_torch.models.ocr import TorchOCR
+    from omniparser_tpu_torch.ocr import NullOCR
+    from omniparser_tpu_torch.pipeline import Omniparser, SOMPipeline
+
+    dev = pipe.device
+
+    def wall(call):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # K2 at the host OCR slot buckets: N = 512 icons against M = 32 .. 256
+    rng = np.random.default_rng(seed + 41)
+    for m in (32, 64, 128, 256):
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in _merge_random(rng, 512, m))
+        mism, want = merge_mismatches(args, 0.9)  # the compat call's iou_threshold
+        emit("compat", kernel="merge_masks", case=f"512x{m}", absorb=int(want[2].sum()),
+             mismatches=mism)
+        if any(mism.values()):
+            fail(f"compat: merge_masks disagrees with its plain version at M = {m}: {mism}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        (pt, hf, nbytes), write_ms = wall(lambda: write_upstream_checkpoints(
+            tmp, pipe.det_module, pipe.captioner.model))
+        # the reference's config dict; the OCR is check_ocr_box's below
+        omni, load_ms = wall(lambda: Omniparser(
+            {"som_model_path": pt, "caption_model_path": hf, "BOX_TRESHOLD": 0.05},
+            device=dev, ocr=NullOCR(), captioner_dims=pipe.captioner.dims))
+        bad_det = state_mismatches(omni.pipeline.det_module.state_dict(),
+                                   pipe.det_module.state_dict())
+        bad_cap = state_mismatches(omni.pipeline.captioner.model.state_dict(),
+                                   pipe.captioner.model.state_dict())
+    emit("compat", checkpoints={"ultralytics_pt": "icon_detect/model.pt",
+                                "hf_dir": "icon_caption/ (model.safetensors float32, config.json)",
+                                "bytes": nbytes, "write_ms": round(write_ms, 1),
+                                "omniparser_load_ms": round(load_ms, 1)},
+         state_equal={"detector": not bad_det, "captioner": not bad_cap},
+         differing_keys=(bad_det + bad_cap)[:8])
+    if bad_det or bad_cap:
+        fail(f"compat: the loaded checkpoints differ from the seeded state: {(bad_det + bad_cap)[:8]}")
+
+    model = (omni.pipeline.detector, omni.pipeline.det_module)
+    caption = omni.pipeline.captioner
+    ocr = TorchOCR(dataclasses.replace(cfg.ocr, text_threshold=0.0), dev,
+                   pipe.ocr.det.state_dict(), pipe.ocr.rec.state_dict())
+    args = {"text_threshold": 0.0}
+    kw = dict(BOX_TRESHOLD=0.05, caption_model_processor=caption, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        # warm-up of both calls (first launches at these shapes)
+        (texts, boxes), _ = compat.check_ocr_box(image, output_bb_format="xyxy",
+                                                 easyocr_args=args, backend=ocr, device=dev)
+        compat.get_som_labeled_img(image, model, ocr_bbox=boxes, ocr_text=texts, **kw)
+        variants = {}
+        for decoder in ("greedy", "beamsearch"):
+            for paragraph in (False, True):
+                ((t, b), _), ms = wall(lambda: compat.check_ocr_box(
+                    image, output_bb_format="xyxy", backend=ocr, device=dev,
+                    easyocr_args=dict(args, decoder=decoder, paragraph=paragraph)))
+                variants[f"{decoder}{'_paragraph' if paragraph else ''}"] = {
+                    "boxes": len(b), "ms": round(ms, 2), "sample": t[:2]}
+        # the counted path: counters to 0 just before, read just after
+        reset_counts()
+        (((texts, boxes), _), ocr_ms) = wall(lambda: compat.check_ocr_box(
+            image, output_bb_format="xyxy", easyocr_args=args, backend=ocr, device=dev))
+        (som, labels, elements), som_ms = wall(lambda: compat.get_som_labeled_img(
+            image, model, ocr_bbox=boxes, ocr_text=texts, **kw))
+        counts = all_counts()
+    cached = [p for p in compat._PIPELINE_CACHE.values() if p.captioner is caption]
+    c = dict(cached[0].last_counts)
+    path_counts("compat", counts, launches_by_path)
+    emit("compat", check_ocr_box=variants, check_ocr_box_ms=round(ocr_ms, 2),
+         get_som_labeled_img_ms=round(som_ms, 2), ocr_boxes=len(boxes), elements=len(elements),
+         ocr_boxes_to_the_merge=c["ocr_valid"],
+         ocr_absorbed=c["ocr_absorbed"], icons_inside_ocr=c["icons_inside_ocr"],
+         captioned=c["cap_need"], kb=c["kb"], launches=counts,
+         som_png_bytes=len(som), warnings=sorted({str(w.message)[:80] for w in caught}))
+    if not boxes:
+        fail("compat: check_ocr_box found no text at text threshold 0")
+    if c["ocr_valid"] != len(boxes):
+        fail(f"compat: {len(boxes)} OCR boxes handed in, {c['ocr_valid']} reached the merge")
+    if counts["nms_keep"] != 1 or counts["merge_masks"] != 1 or counts["overlap_matrices"]:
+        fail(f"compat: launches {counts} (want nms_keep 1, merge_masks 1, overlap_matrices 0)")
+    if counts["crop_resize"] < 2:
+        fail(f"compat: crop_resize launched {counts['crop_resize']} times (want the line grid "
+             "and the caption grid)")
+    if not elements or len(labels) != len(elements):
+        fail("compat: get_som_labeled_img returned no elements")
+    if not any(e["type"] == "text" and e["content"] in texts for e in elements) and \
+            not c["ocr_absorbed"]:
+        fail("compat: no OCR text reached the elements")
+
+    # get_som_labeled_img again with OCR boxes made from this model's own
+    # icons (seeded OCR boxes cover every icon, so the call above captions
+    # nothing): absorb, the icon drop and the caption decode at full width
+    icons, _, _ = compat.predict_yolo(model, image, 0.05, device=dev,
+                                      iou_threshold=cfg.detector.nms_iou_threshold)
+    made_boxes, made_texts = provided_ocr_boxes(icons, *image.shape[:2])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        compat.get_som_labeled_img(image, model, ocr_bbox=made_boxes, ocr_text=made_texts, **kw)
+        reset_counts()
+        (_, _, made_elements), made_ms = wall(lambda: compat.get_som_labeled_img(
+            image, model, ocr_bbox=made_boxes, ocr_text=made_texts, **kw))
+        made_counts = all_counts()
+    m = dict(cached[0].last_counts)
+    path_counts("compat_made_ocr_boxes", made_counts, launches_by_path)
+    emit("compat", made_ocr_boxes=made_boxes, made_ocr_text=made_texts,
+         get_som_labeled_img_ms=round(made_ms, 2), elements=len(made_elements),
+         ocr_boxes_to_the_merge=m["ocr_valid"], ocr_absorbed=m["ocr_absorbed"],
+         icons_inside_ocr=m["icons_inside_ocr"], captioned=m["cap_need"], kb=m["kb"],
+         launches=made_counts)
+    if not (m["ocr_absorbed"] > 0 and m["icons_inside_ocr"] > 0 and m["kb"] > 0):
+        fail(f"compat: with OCR boxes made from the icons, absorbed {m['ocr_absorbed']}, "
+             f"icons inside OCR {m['icons_inside_ocr']}, caption bucket {m['kb']} (want all > 0)")
+    if any(e["content"] is None for e in made_elements):
+        fail("compat: an element without content")
+
+    # host-candidate OCR: the parse's networks with the candidates on the
+    # host, against the fused device-candidate parse
+    host = {}
+    for name, flags in (("host_components", {"device_components": False}),
+                        ("host_candidates", {"fused_candidates": False})):
+        hcfg = dataclasses.replace(cfg, ocr=dataclasses.replace(cfg.ocr, **flags))
+        hocr = pipe.ocr if flags.get("device_components", True) else TorchOCR(
+            hcfg.ocr, dev, pipe.ocr.det.state_dict(), pipe.ocr.rec.state_dict())
+        hp = SOMPipeline(hcfg, dev, detector=pipe.detector, det_module=pipe.det_module,
+                         ocr=hocr, captioner=pipe.captioner)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            hp.parse_image(image)  # warm-up
+            reset_counts()
+            (_, _, got), ms = wall(lambda: hp.parse_image(image))
+            hcounts = all_counts()
+            pipe.config = cfg
+            _, _, want = pipe.parse_image(image)
+        path_counts(name, hcounts, launches_by_path)
+        bad, flips = same_elements(got, want, 0.0)
+        host[name] = {"elements": len(got), "ms": round(ms, 2), "caption_flips": flips,
+                      "ocr_candidates": hp.last_counts["ocr_candidates"], "launches": hcounts}
+        if bad:
+            fail(f"compat: {name} parse differs from the fused path: {bad}")
+    emit("compat", host_candidate_parses=host)
+    del omni, caption, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 # tests/test_quant.py's bounds on the int8 logits, over the float logits' std
 INT8_MAX_DELTA = 0.35
 INT8_MEAN_DELTA = 0.05
@@ -1323,6 +1725,8 @@ def phase_parity(seed: int):
     if not captioned or sum(chunks) == 0:
         fail("parity_on_card: the float32 parse_batch decoded no caption")
     del wit
+    # the reference's two-call API with provided OCR boxes (ROADMAP C.10)
+    parity_compat(cpu, gpu, image)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     del gpu
     torch.cuda.empty_cache()
@@ -1343,6 +1747,7 @@ def main() -> None:
     images, single = phase_batch(args.seed, pipe, launches_by_path)
     phase_serve(args.seed, pipe, images, single, launches_by_path)
     phase_int8(pipe, image, launches_by_path)
+    phase_compat(args.seed, pipe, image, pipe.config, launches_by_path)
     emit("launches", by_path=launches_by_path)
     del pipe, single
     torch.cuda.empty_cache()

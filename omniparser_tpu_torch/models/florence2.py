@@ -584,6 +584,17 @@ class FlorenceCaptioner:
         self._mean = torch.tensor(_IMAGE_MEAN, dtype=torch.float32, device=self.device)
         self._std = torch.tensor(_IMAGE_STD, dtype=torch.float32, device=self.device)
 
+    @classmethod
+    def from_checkpoint(cls, path: str, config: CaptionerConfig, dims: FlorenceDims = BASE,
+                        device="cuda"):
+        """An HF Florence-2 checkpoint directory (model.safetensors and the
+        tokenizer files; ``weights/convert_florence.py``)."""
+        from omniparser_tpu_torch.models.tokenizer import load_tokenizer
+        from omniparser_tpu_torch.weights.convert_florence import load_florence_state
+
+        state, dims, tok_path = load_florence_state(path, dims)
+        return cls(config, dims, state, tokenizer=load_tokenizer(tok_path), device=device)
+
     def preprocess(self, crops_f255: torch.Tensor) -> torch.Tensor:
         """[N, S, S, 3] float crops in [0,255] -> CLIP-normalised."""
         return (crops_f255 / 255.0 - self._mean) / self._std

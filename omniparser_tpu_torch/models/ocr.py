@@ -13,7 +13,7 @@ auto-numbered parameter tree (``_ConvBlock_0``, ``Conv_0``, ``attn_0``
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,8 +21,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from omniparser_tpu_torch.config import OcrConfig
-from omniparser_tpu_torch.ops.components import device_components, quantize_u8_parity
-from omniparser_tpu_torch.ops.preprocess import letterbox
+from omniparser_tpu_torch.ops.components import (
+    candidate_boxes_np,
+    device_components,
+    quantize_u8_parity,
+)
+from omniparser_tpu_torch.ops.preprocess import (
+    crop_lines_batch,
+    letterbox,
+    pad_to_bucket,
+    pick_bucket_2d,
+)
 
 # charset: CTC blank at index 0
 CHARSET = (
@@ -200,6 +209,114 @@ def ids_to_text(ids_row, charset: str = CHARSET) -> str:
     return "".join(chars)
 
 
+def ctc_greedy_decode(logits: np.ndarray, charset: str = CHARSET) -> Tuple[str, float]:
+    """Greedy CTC: argmax per step, collapse repeats, drop blanks.
+    Returns (text, mean char prob)."""
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    ids = probs.argmax(-1)
+    conf = probs.max(-1)
+    chars, confs, prev = [], [], -1
+    for t, i in enumerate(ids):
+        if i != prev and i != 0:
+            chars.append(charset[i - 1])
+            confs.append(conf[t])
+        prev = i
+    if not chars:
+        return "", 0.0
+    return "".join(chars), float(np.mean(confs))
+
+
+def ctc_beam_decode(logits: np.ndarray, beam_width: int = 10,
+                    charset: str = CHARSET) -> Tuple[str, float]:
+    """CTC prefix beam search on the host: the analogue of easyocr's
+    ``decoder='beamsearch', beamWidth=N``.  Returns (text, conf) where conf
+    is the greedy mean char prob (the quantity text_threshold gates)."""
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    T, C = probs.shape
+    # prune each step to the top-k symbols: the cost is T * k * beam
+    k = min(beam_width, C)
+    NEG = -1e30
+
+    def logaddexp(a, b):
+        if a < b:
+            a, b = b, a
+        if b <= NEG / 2:
+            return a
+        return a + np.log1p(np.exp(b - a))
+
+    logp = np.log(np.maximum(probs, 1e-12))
+    # beams: prefix tuple -> (log p ending in blank, log p ending in non-blank)
+    beams = {(): (0.0, NEG)}
+    for t in range(T):
+        top = np.argpartition(-logp[t], k - 1)[:k]
+        nxt = {}
+        for prefix, (pb, pnb) in beams.items():
+            for c in top:
+                lp = logp[t, c]
+                if c == 0:  # blank extends both endings, prefix unchanged
+                    b, nb = nxt.get(prefix, (NEG, NEG))
+                    nxt[prefix] = (logaddexp(b, logaddexp(pb, pnb) + lp), nb)
+                    continue
+                new_prefix = prefix + (int(c),)
+                if prefix and prefix[-1] == c:
+                    # a repeat: from a blank it is a new char, from a
+                    # non-blank it collapses into the same prefix
+                    b, nb = nxt.get(new_prefix, (NEG, NEG))
+                    nxt[new_prefix] = (b, logaddexp(nb, pb + lp))
+                    b, nb = nxt.get(prefix, (NEG, NEG))
+                    nxt[prefix] = (b, logaddexp(nb, pnb + lp))
+                else:
+                    b, nb = nxt.get(new_prefix, (NEG, NEG))
+                    nxt[new_prefix] = (b, logaddexp(nb, logaddexp(pb, pnb) + lp))
+        beams = dict(sorted(nxt.items(), key=lambda kv: -logaddexp(*kv[1]))[:beam_width])
+    best = max(beams.items(), key=lambda kv: logaddexp(*kv[1]))[0]
+    _, conf = ctc_greedy_decode(logits, charset)
+    return "".join(charset[i - 1] for i in best), conf
+
+
+def merge_paragraphs(texts: List[str], boxes: List[List[int]], y_gap: float = 0.7,
+                     x_gap: float = 1.5) -> Tuple[List[str], List[List[int]]]:
+    """easyocr's ``paragraph=True``: union line boxes whose gaps are within
+    (x_gap, y_gap) x line height, then join each group's texts in reading
+    order (top to bottom, left to right) under the union box."""
+    n = len(boxes)
+    if n == 0:
+        return texts, boxes
+    parent = list(range(n))
+
+    def find(i):
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    for i in range(n):
+        x1i, y1i, x2i, y2i = boxes[i]
+        hi = max(y2i - y1i, 1)
+        for j in range(i + 1, n):
+            x1j, y1j, x2j, y2j = boxes[j]
+            h = min(hi, max(y2j - y1j, 1))
+            dx = max(x1i, x1j) - min(x2i, x2j)  # negative where they overlap
+            dy = max(y1i, y1j) - min(y2i, y2j)
+            if dx < x_gap * h and dy < y_gap * h:
+                parent[find(i)] = find(j)
+    groups: dict = {}
+    for i in range(n):
+        groups.setdefault(find(i), []).append(i)
+    out_texts, out_boxes = [], []
+    for members in groups.values():
+        members.sort(key=lambda i: (boxes[i][1], boxes[i][0]))
+        out_texts.append(" ".join(texts[i] for i in members))
+        out_boxes.append([
+            min(boxes[i][0] for i in members), min(boxes[i][1] for i in members),
+            max(boxes[i][2] for i in members), max(boxes[i][3] for i in members),
+        ])
+    order = sorted(range(len(out_boxes)), key=lambda g: (out_boxes[g][1], out_boxes[g][0]))
+    return [out_texts[g] for g in order], [out_boxes[g] for g in order]
+
+
 class TorchOCR:
     """The first-party OCR backend: both nets, the fused letterbox +
     detector + components step, and the recogniser's preprocessing."""
@@ -237,12 +354,87 @@ class TorchOCR:
         return device_components(quantize_u8_parity(prob), 0.3, 0.3, min_area=4,
                                  max_out=max_cc, pre_cap=max_cc)
 
+    @torch.no_grad()
+    def det_full(self, padded: torch.Tensor, hw) -> torch.Tensor:
+        """Letterbox + detector -> the probability map on the uint8 grid
+        ([S/2, S/2] uint8, on the device), for the host components."""
+        img, _r, _pads = letterbox(padded, hw, self.config.det_imgsz)
+        prob = torch.clamp(self.det(img.permute(2, 0, 1)[None])[0, 0].float(), 0.0, 1.0)
+        return (prob * 255.0 + 0.5).to(torch.uint8)
+
     def dispatch_det(self, padded: torch.Tensor, hw_host):
-        """(component dict on the device, r, (pad_y, pad_x)).  The letterbox
-        parameters are closed-form host math (Python floats)."""
-        cc = self.det_cc_full(padded, hw_host)
+        """(detector output on the device, r, (pad_y, pad_x)): the component
+        dict with ``config.device_components``, else the uint8 map.  The
+        letterbox parameters are closed-form host math (Python floats)."""
+        if self.config.device_components:
+            out = self.det_cc_full(padded, hw_host)
+        else:
+            out = self.det_full(padded, hw_host)
         s = self.config.det_imgsz
         uh, uw = hw_host
         r = min(s / uh, s / uw)
         pads = ((s - uh * r) / 2.0, (s - uw * r) / 2.0)
-        return cc, r, pads
+        return out, r, pads
+
+    def candidates_from_prob(self, prob, r, pads, h: int, w: int) -> List[List[int]]:
+        """Host half: candidate pixel boxes in the (h, w) frame from what
+        dispatch_det gave, the component dict (downloaded) or the uint8
+        map (components on the host, ``utils/hostops``).  The unclip and
+        unmap are ``candidate_boxes_np``, the float32 twin of the device
+        path's ``candidate_boxes_from_cc``: both give the same integers."""
+        from omniparser_tpu_torch.utils.hostops import extract_components
+
+        if isinstance(prob, dict):
+            cc = {k: v.cpu().numpy() for k, v in prob.items()}
+            comps = [(tuple(int(v) for v in cc["boxes"][i]), float(cc["scores"][i]))
+                     for i in range(int(cc["count"]))]
+        else:
+            p = prob.cpu().numpy() if isinstance(prob, torch.Tensor) else np.asarray(prob)
+            if p.dtype == np.uint8:
+                p = p.astype(np.float32) / 255.0
+            comps = [(box, score) for box, score, _area in extract_components(p, 0.3, 4, 0.3)]
+        # cap before the size filter: the device path slices the same
+        # raster-ordered slots
+        return candidate_boxes_np(comps[: self.config.max_text_boxes], r, pads, w, h)
+
+    def detect_candidates(self, padded: torch.Tensor, hw, h: int, w: int) -> List[List[int]]:
+        """Blocking: dispatch_det, download, candidate boxes."""
+        prob, r, pads = self.dispatch_det(padded, (h, w))
+        return self.candidates_from_prob(prob, r, pads, h, w)
+
+    @torch.no_grad()
+    def recognize(self, image_rgb, padded: Optional[torch.Tensor] = None, hw=None, *,
+                  decoder: str = "greedy", beam_width: int = 10, paragraph: bool = False):
+        """(texts, boxes xyxy px) with confidence above
+        ``config.text_threshold``.  decoder / beam_width / paragraph are
+        easyocr's readtext arguments; every line is recognised in one
+        batch, padded to a multiple of 32 lines (the crops go through the
+        crop-gather kernel's line grid)."""
+        cfg = self.config
+        h, w = image_rgb.shape[:2]
+        if padded is None:
+            hb, wb = pick_bucket_2d(h, w)
+            padded = torch.from_numpy(pad_to_bucket(np.asarray(image_rgb), hb, wb)[0]).to(
+                self.device)
+        boxes_px = self.detect_candidates(padded, (h, w), h, w)
+        if not boxes_px:
+            return [], []
+        n = len(boxes_px)
+        norm = np.zeros((-(-n // 32) * 32, 4), np.float32)
+        norm[:n] = np.asarray(boxes_px, np.float32) / np.array([w, h, w, h], np.float32)
+        crops = crop_lines_batch(padded, (h, w), torch.from_numpy(norm).to(self.device),
+                                 (cfg.rec_height, cfg.rec_max_width))
+        logits = self.rec(self.rec_preprocess(crops)).float().cpu().numpy()
+        if decoder == "beamsearch":
+            decode = lambda lg: ctc_beam_decode(lg, beam_width, self.charset)
+        else:
+            decode = lambda lg: ctc_greedy_decode(lg, self.charset)
+        texts, out_boxes = [], []
+        for i in range(n):
+            text, conf = decode(logits[i])
+            if text and conf > cfg.text_threshold:
+                texts.append(text)
+                out_boxes.append(boxes_px[i])
+        if paragraph:
+            texts, out_boxes = merge_paragraphs(texts, out_boxes)
+        return texts, out_boxes

@@ -199,6 +199,17 @@ def decode_predictions(level_outputs) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(boxes_all, dim=1), torch.cat(scores_all, dim=1)
 
 
+def snap_imgsz(imgsz, buckets=(640, 960, 1280, 1920)) -> int:
+    """A runtime imgsz (the reference demo's slider, 640 to 1920) -> the
+    smallest letterbox bucket that covers it, the largest above them."""
+    if isinstance(imgsz, (list, tuple)):
+        imgsz = max(imgsz)
+    for b in sorted(buckets):
+        if imgsz <= b:
+            return b
+    return max(buckets)
+
+
 @dataclasses.dataclass(frozen=True)
 class Detector:
     """End-to-end detect: bucket-padded uint8 -> normalised boxes."""

@@ -183,3 +183,36 @@ def candidate_boxes_from_cc(cc_boxes: torch.Tensor, cc_count: torch.Tensor, r,
     norm = torch.where(ok[:, None], norm, torch.zeros_like(norm))
     overflow = torch.clamp(cc_count - max_boxes, min=0)
     return norm, ok, overflow.to(torch.int32)
+
+
+def candidate_boxes_np(comps, r, pads, w: int, h: int, scale: int = 2,
+                       unclip: float = 2.0):
+    """Numpy float32 restatement of ``candidate_boxes_from_cc`` for the
+    host candidate path: [(box_xyxy, score)] components at det-map scale ->
+    compacted [x1, y1, x2, y2] int pixel boxes in the uploaded frame.
+
+    Both share operation order and float32 precision, so their truncated
+    integer boxes are identical (the unmap divides by the letterbox ratio,
+    and float64 could truncate a knife-edge value to another integer)."""
+    import numpy as np
+
+    if not comps:
+        return []
+    b = np.asarray([c[0] for c in comps], np.float32).reshape(-1, 4)
+    wc = b[:, 2] - b[:, 0]
+    hc = b[:, 3] - b[:, 1]
+    margin = np.float32((unclip - 1.0) * 0.5) * np.minimum(wc, hc)
+    s = np.float32(scale)
+    x1 = np.round((b[:, 0] - margin) * s)
+    y1 = np.round((b[:, 1] - margin) * s)
+    x2 = np.round((b[:, 2] + margin) * s)
+    y2 = np.round((b[:, 3] + margin) * s)
+    r32 = np.float32(r)
+    py, px = np.float32(pads[0]), np.float32(pads[1])
+    bx1 = np.maximum((x1 - px) / r32, np.float32(0.0))
+    by1 = np.maximum((y1 - py) / r32, np.float32(0.0))
+    bx2 = np.minimum((x2 - px) / r32, np.float32(w))
+    by2 = np.minimum((y2 - py) / r32, np.float32(h))
+    ok = (bx2 - bx1 >= 1.0) & (by2 - by1 >= 1.0)
+    ib = np.stack([bx1, by1, bx2, by2], axis=1).astype(np.int64)
+    return [list(int(v) for v in row) for row in ib[ok]]

@@ -10,6 +10,12 @@
             bucket that covers the content-less icons
     host:   strings, SOM overlay, JSON
 
+Host-candidate OCR (``OcrConfig.device_components`` or ``fused_candidates``
+off, or an OCR backend that reads text on the host, such as the boxes and
+texts that ``compat.get_som_labeled_img`` is handed) takes the candidate
+boxes to the host between the OCR detector and the fused step
+(``_stage_ocr``), in slot buckets of 32, 64, ... up to ``max_text_boxes``.
+
 ``parse_batch`` runs the same per-image steps for several screenshots and
 packs every image's caption slots into one cross-image decode (chunks of
 at most ``_DECODE_CHUNK`` slots), so the decode's launch train is paid once
@@ -44,6 +50,7 @@ import torch
 from omniparser_tpu_torch.config import PipelineConfig
 from omniparser_tpu_torch.models.ocr import TorchOCR, ctc_device_stats
 from omniparser_tpu_torch.models.yolov8 import Detector
+from omniparser_tpu_torch.ocr import make_ocr_backend
 from omniparser_tpu_torch.ops.boxes import int_box_area
 from omniparser_tpu_torch.ops.components import candidate_boxes_from_cc
 from omniparser_tpu_torch.ops.overlap import merge_icons_and_ocr
@@ -173,6 +180,7 @@ def fused_parse_step(cfg: PipelineConfig, detector: Detector, det_module,
         "det_valid": det_valid,
         "det_overflow": det_overflow,
         "icon_keep": res.icon_keep,
+        "icon_suppressed": res.icon_suppressed,
         "ocr_keep": res.ocr_keep,
         "absorb": res.absorb,
         "ocr_valid": ocr_valid,
@@ -213,7 +221,8 @@ def _flat_weights(field: Optional[str], name: str):
     """A config weight field -> flat variable dict; None (and only None)
     asks for the seeded init.  'auto' is the exported shipped checkpoint and
     raises where the export has not been made: untrained networks are never
-    a silent default."""
+    a silent default.  Any other file is an exported .npz; a directory (an
+    orbax tree) raises."""
     from omniparser_tpu_torch.weights.convert import load_npz
 
     if field is None:
@@ -226,6 +235,11 @@ def _flat_weights(field: Optional[str], name: str):
                 "`python scripts/export_torch_weights.py`, give the path of an exported "
                 ".npz, or pass None for this weight field to initialise from a seed")
         return load_npz(path)
+    if os.path.isdir(field):
+        raise ValueError(
+            f"{field} is a directory: an orbax checkpoint of the JAX package cannot be read "
+            "here; write its .npz with `python scripts/export_torch_weights.py` and give that "
+            "path (a captioner directory is read where it holds an HF model.safetensors)")
     return load_npz(field)
 
 
@@ -234,21 +248,76 @@ def _sub_tree(flat: Dict, prefix: str) -> Dict:
     return {k[len(p):]: v for k, v in flat.items() if k.startswith(p)}
 
 
+def detector_state_from_field(field: Optional[str], detector: Detector):
+    """``PipelineConfig.detector_weights`` -> a state_dict for the
+    detector's module, or None for the seeded init: 'auto' and ``*.npz``
+    are exports, any other file an ultralytics ``.pt`` or torch state_dict
+    (``weights/convert_yolo.py``)."""
+    from omniparser_tpu_torch.weights import convert
+    from omniparser_tpu_torch.weights.convert_yolo import load_detector_state
+
+    if field is None:
+        return None
+    if field == "auto" or field.endswith(".npz") or os.path.isdir(field):
+        return convert.convert_yolov8(_sub_tree(_flat_weights(field, "det_synth"), "det"),
+                                      detector.variant, detector.num_classes)
+    return load_detector_state(field, detector)
+
+
+def ocr_states_from_field(field: Optional[str]):
+    """``PipelineConfig.ocr_weights`` -> (detector, recogniser) state_dicts,
+    or None for the seeded init."""
+    from omniparser_tpu_torch.weights import convert
+
+    flat = _flat_weights(field, "ocr_en_synth")
+    if flat is None:
+        return None
+    return (convert.convert_text_detector(_sub_tree(flat, "det")),
+            convert.convert_text_recognizer(_sub_tree(flat, "rec")))
+
+
+def florence_from_field(field: Optional[str], config, dims, generator, device, state=None):
+    """``PipelineConfig.captioner_weights`` -> a FlorenceCaptioner: from
+    `state` where given, else an HF Florence-2 directory (model.safetensors;
+    at ``dims``, default florence-2-base), an export ('auto' or ``*.npz``,
+    which carries its own dims), or None for the seeded init at ``dims``."""
+    import json
+
+    from omniparser_tpu_torch.models.florence2 import BASE, FlorenceCaptioner, FlorenceDims
+    from omniparser_tpu_torch.weights import convert
+
+    if state is not None:
+        return FlorenceCaptioner(config, dims or BASE, state, generator=generator,
+                                 device=device)
+    if field is not None and os.path.isfile(os.path.join(field, "model.safetensors")):
+        return FlorenceCaptioner.from_checkpoint(field, config, dims or BASE, device=device)
+    flat = _flat_weights(field, "cap_synth")
+    if flat is not None:
+        raw = json.loads(str(flat.pop("__dims__")))
+        dims = FlorenceDims(**{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in raw.items()})
+        state = convert.convert_florence2(_sub_tree(flat, "cap"), dims)
+    return FlorenceCaptioner(config, dims or BASE, state, generator=generator, device=device)
+
+
 class SOMPipeline:
     """End-to-end parse: detector, OCR, merge, captioner.
 
     device: where everything runs; the default is the card, and a caller
-    that wants the CPU says device="cpu".  Weights: explicit state_dicts
-    (`detector_state`, `ocr_states=(det, rec)`, `captioner_state` with
-    `captioner_dims`), else the config's weight fields: an exported .npz
-    (see weights/convert.py; 'auto' raises where it is missing), or None
-    for a seeded random init.
+    that wants the CPU says device="cpu".  Parts: `detector` (a Detector)
+    with `det_module` (its network), `ocr` (any object with
+    ``recognize(image_rgb, padded, hw) -> (texts, boxes_px)``; a TorchOCR
+    runs on the device) and `captioner`, each built from the config where
+    not given.  Weights: explicit state_dicts (`detector_state`,
+    `ocr_states=(det, rec)`, `captioner_state` with `captioner_dims`), else
+    the config's weight fields: an exported .npz ('auto' raises where it is
+    missing), an ultralytics .pt (detector), an HF Florence-2 directory
+    (captioner), or None for a seeded random init.
     """
 
-    def __init__(self, config: PipelineConfig, device="cuda", *, detector_state=None,
-                 ocr_states=None, captioner_state=None, captioner_dims=None,
-                 captioner=None, seed: int = 0):
-        from omniparser_tpu_torch.weights import convert
+    def __init__(self, config: PipelineConfig, device="cuda", *, detector=None,
+                 det_module=None, detector_state=None, ocr=None, ocr_states=None,
+                 captioner_state=None, captioner_dims=None, captioner=None, seed: int = 0):
         from omniparser_tpu_torch.weights.init import build_module
 
         self.config = config
@@ -256,59 +325,45 @@ class SOMPipeline:
         gen = torch.Generator().manual_seed(seed)
 
         dc = config.detector
-        if dc.variant.startswith("v9"):
-            raise NotImplementedError("the YOLOv9 family is not ported")
-        self.detector = Detector(variant=dc.variant, num_classes=dc.num_classes,
-                                 imgsz=dc.default_imgsz, max_det=dc.max_detections,
-                                 prefilter=dc.prefilter_topk)
-        if detector_state is None:
-            flat = _flat_weights(config.detector_weights, "det_synth")
-            if flat is not None:
-                detector_state = convert.convert_yolov8(
-                    _sub_tree(flat, "det"), dc.variant, dc.num_classes)
-        self.det_module = build_module(self.detector.make_module(), detector_state, gen,
-                                       getattr(torch, dc.dtype), self.device)
+        if detector is None:
+            if dc.variant.startswith("v9"):
+                raise NotImplementedError("the YOLOv9 family is not ported (ROADMAP A.5)")
+            detector = Detector(variant=dc.variant, num_classes=dc.num_classes,
+                                imgsz=dc.default_imgsz, max_det=dc.max_detections,
+                                prefilter=dc.prefilter_topk)
+        self.detector = detector
+        if det_module is None:
+            if detector_state is None:
+                detector_state = detector_state_from_field(config.detector_weights, detector)
+            det_module = build_module(detector.make_module(), detector_state, gen,
+                                      getattr(torch, dc.dtype), self.device)
+        self.det_module = det_module
 
-        if config.ocr.backend == "null":
-            self.ocr = None
-        elif config.ocr.backend == "jax":
-            if ocr_states is None:
-                flat = _flat_weights(config.ocr_weights, "ocr_en_synth")
-                if flat is not None:
-                    ocr_states = (
-                        convert.convert_text_detector(_sub_tree(flat, "det")),
-                        convert.convert_text_recognizer(_sub_tree(flat, "rec")))
-            det_s, rec_s = ocr_states if ocr_states is not None else (None, None)
-            self.ocr = TorchOCR(config.ocr, self.device, det_s, rec_s, gen)
-        else:
-            raise NotImplementedError(f"OCR backend {config.ocr.backend!r} is not ported")
-        self._fused_ocr = bool(self.ocr is not None and config.ocr.device_components
+        if ocr is None:
+            if config.ocr.backend == "jax":
+                if ocr_states is None:
+                    ocr_states = ocr_states_from_field(config.ocr_weights)
+                det_s, rec_s = ocr_states if ocr_states is not None else (None, None)
+                ocr = TorchOCR(config.ocr, self.device, det_s, rec_s, gen)
+            else:
+                ocr = make_ocr_backend(config.ocr, device=self.device)
+        self.ocr = ocr
+        # the first-party backend runs on the device; any other reads text
+        # on the host and hands over boxes and strings
+        self._torch_ocr = ocr if isinstance(ocr, TorchOCR) else None
+        # device candidates: the components feed the fused step without
+        # returning to the host
+        self._fused_ocr = bool(self._torch_ocr is not None and config.ocr.device_components
                                and config.ocr.fused_candidates)
-        if self.ocr is not None and not self._fused_ocr:
-            raise NotImplementedError("host-candidate OCR is not ported: keep "
-                                      "device_components and fused_candidates on")
 
         if captioner is None:
             backend = config.captioner.backend
             if not config.use_local_semantics or backend == "null":
                 captioner = NullCaptioner()
             elif backend == "florence":
-                from omniparser_tpu_torch.models.florence2 import (
-                    BASE, FlorenceCaptioner, FlorenceDims)
-
-                if captioner_state is None:
-                    flat = _flat_weights(config.captioner_weights, "cap_synth")
-                    if flat is not None:
-                        import json
-
-                        raw = json.loads(str(flat.pop("__dims__")))
-                        captioner_dims = FlorenceDims(**{
-                            k: tuple(v) if isinstance(v, list) else v for k, v in raw.items()})
-                        captioner_state = convert.convert_florence2(
-                            _sub_tree(flat, "cap"), captioner_dims)
-                captioner = FlorenceCaptioner(config.captioner, captioner_dims or BASE,
-                                              captioner_state, generator=gen,
-                                              device=self.device)
+                captioner = florence_from_field(config.captioner_weights, config.captioner,
+                                                captioner_dims, gen, self.device,
+                                                state=captioner_state)
             else:
                 raise NotImplementedError(f"captioner backend {backend!r} is not ported")
         self.captioner = captioner
@@ -357,6 +412,8 @@ class SOMPipeline:
             watch = _Stopwatch(self.stage_ms, self.device)
             ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
             watch.lap("ocr_detect")
+        else:
+            self._stage_ocr(ctx)
         t["ocr_detect"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         crops_dev = self._stage_dispatch(ctx, box_threshold, iou_threshold)
@@ -408,20 +465,31 @@ class SOMPipeline:
         """Several screenshots -> a list of parse_image tuples, in order.
 
         Each image's upload, OCR detector and fused step are dispatched in
-        turn; then the downloads, with one batched caption decode over
-        every image's slots dispatched after the last download; each
-        image's element assembly and overlay run while that decode is
-        queued, and the captions are filled last.  Each image gets what
-        parse_image gives it."""
+        turn (with host-candidate OCR: every upload and OCR detector first,
+        so that no image's candidate download waits behind a later upload);
+        then the downloads, with one batched caption decode over every
+        image's slots dispatched after the last download; each image's
+        element assembly and overlay run while that decode is queued, and
+        the captions are filled last.  Each image gets what parse_image
+        gives it."""
         t: Dict[str, float] = {}
         t0 = time.perf_counter()
-        ctxs = []
-        for img in images:
-            ctx = self._stage_upload(img)
-            if self._fused_ocr:
+        if self._fused_ocr:
+            ctxs = []
+            for img in images:
+                ctx = self._stage_upload(img)
                 ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
-            ctx["crops_dev"] = self._stage_dispatch(ctx, None, None)
-            ctxs.append(ctx)
+                ctx["crops_dev"] = self._stage_dispatch(ctx, None, None)
+                ctxs.append(ctx)
+        else:
+            ctxs = [self._stage_upload(img) for img in images]
+            if self._torch_ocr is not None:
+                for ctx in ctxs:  # every detector before any candidate download
+                    ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"],
+                                                           (ctx["uh"], ctx["uw"]))
+            for ctx in ctxs:
+                self._stage_ocr(ctx)
+                ctx["crops_dev"] = self._stage_dispatch(ctx, None, None)
         t["dispatch"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         handle = None
@@ -459,6 +527,41 @@ class SOMPipeline:
                         torch.zeros((kb, cs, cs, 3), dtype=torch.float32, device=self.device))
                     tokens.cpu()
 
+    def _stage_ocr(self, ctx: Dict) -> None:
+        """Host-candidate OCR: candidate boxes (first-party detector and
+        host components) or a host backend's boxes and texts, into the
+        smallest slot bucket of 32, 64, ... (at most max_text_boxes) that
+        holds them; no candidate still takes one bucket, for fixed shapes."""
+        uh, uw = ctx["uh"], ctx["uw"]
+        max_ocr = self.config.ocr.max_text_boxes
+        watch = _Stopwatch(self.stage_ms, self.device)
+        host_texts = None
+        if self._torch_ocr is not None:
+            fut = ctx.pop("ocr_fut", None)
+            if fut is None:
+                fut = self.ocr.dispatch_det(ctx["padded_dev"], (uh, uw))
+            boxes_px = self._torch_ocr.candidates_from_prob(*fut, uh, uw)
+            frame_wh = (uw, uh)
+        else:
+            # host backends see the original image: normalise by its dims
+            host_texts, boxes_px = self.ocr.recognize(ctx["image"], ctx["padded_dev"], (uh, uw))
+            frame_wh = (ctx["w"], ctx["h"])
+        n_ocr = min(len(boxes_px), max_ocr)
+        bucket = 32
+        while bucket < max(n_ocr, 1):
+            bucket *= 2
+        bucket = min(bucket, max_ocr)
+        ocr_arr = np.zeros((bucket, 4), np.float32)
+        ocr_cand_valid = np.zeros(bucket, bool)
+        if n_ocr:
+            fw, fh = frame_wh
+            ocr_arr[:n_ocr] = (np.asarray(boxes_px[:n_ocr], np.float32)
+                               / np.array([fw, fh, fw, fh], np.float32))
+            ocr_cand_valid[:n_ocr] = True
+        ctx.update(ocr_arr=ocr_arr, ocr_cand_valid=ocr_cand_valid, n_ocr=n_ocr,
+                   host_texts=host_texts)
+        watch.lap("ocr_detect")
+
     def _stage_dispatch(self, ctx: Dict, box_threshold, iou_threshold):
         """Run the fused step; its outputs stay on the device (in
         ctx["out_dev"]) until _download.  Returns the caption crops."""
@@ -470,12 +573,11 @@ class SOMPipeline:
             ocr_a, ocr_b = cc["boxes"], cc["count"]
             ctx["cc_count"] = cc["count"]
         else:
-            # no OCR: one empty bucket of 32 slots keeps the shapes fixed
-            ocr_a = torch.zeros((32, 4), dtype=torch.float32, device=self.device)
-            ocr_b = torch.zeros((32,), dtype=torch.bool, device=self.device)
+            ocr_a = torch.from_numpy(ctx["ocr_arr"]).to(self.device)
+            ocr_b = torch.from_numpy(ctx["ocr_cand_valid"]).to(self.device)
             r, pads = 0.0, (0.0, 0.0)
         out = fused_parse_step(
-            cfg, self.detector, self.det_module, self.ocr, self._florence is not None,
+            cfg, self.detector, self.det_module, self._torch_ocr, self._florence is not None,
             ctx["padded_dev"], (ctx["uh"], ctx["uw"]), (ctx["h"], ctx["w"]),
             ocr_a, ocr_b, r, pads,
             box_threshold, cfg.detector.nms_iou_threshold, iou_threshold,
@@ -604,8 +706,7 @@ class SOMPipeline:
                 f"detector prefilter overflow: {int(out['det_overflow'])} "
                 "above-threshold candidates beyond the top-k window "
                 "(raise DetectorConfig.prefilter_topk)", RuntimeWarning)
-        n_ocr = 0
-        ocr_arr = None
+        host_texts = None
         if "ocr_boxes" in out:  # device-candidate mode: boxes arrive in `out`
             ocr_arr = out["ocr_boxes"]
             n_ocr = ocr_arr.shape[0]
@@ -614,8 +715,13 @@ class SOMPipeline:
                     f"OCR candidate overflow: {int(out['ocr_overflow'])} "
                     "text components beyond max_text_boxes slots "
                     "(raise OcrConfig.max_text_boxes)", RuntimeWarning)
-        texts = {k: self.ocr.decode_ids(out["rec_ids"][k])
-                 for k in range(n_ocr) if out["ocr_valid"][k]}
+        else:  # host candidates: slots past n_ocr are padding
+            ocr_arr, n_ocr, host_texts = ctx["ocr_arr"], ctx["n_ocr"], ctx["host_texts"]
+        if self._torch_ocr is not None:
+            texts = {k: self._torch_ocr.decode_ids(out["rec_ids"][k])
+                     for k in range(n_ocr) if out["ocr_valid"][k]}
+        else:  # a host backend's strings, by slot
+            texts = {k: (host_texts[k] if host_texts else "") for k in range(n_ocr)}
 
         elements: List[Dict] = []
         for k in range(n_ocr):
@@ -652,11 +758,17 @@ class SOMPipeline:
             }
         ctx["elements"] = elements
         ctx["label_coordinates"] = label_coordinates
+        icon_pass = out["det_valid"] & ~out["icon_suppressed"]
         self.last_counts = {
             "det_keep": int(out["det_valid"].sum()),
             "ocr_components": int(out.get("cc_count", 0)),
-            "ocr_candidates": int(out["ocr_cand_valid"].sum()) if "ocr_cand_valid" in out else 0,
+            "ocr_candidates": (int(out["ocr_cand_valid"].sum()) if "ocr_cand_valid" in out
+                               else int(ctx["n_ocr"])),
             "ocr_valid": int(out["ocr_valid"].sum()),
+            # OCR boxes whose text joined an icon (and left the output);
+            # icons dropped because an OCR box contains them
+            "ocr_absorbed": int(out["absorb"].any(axis=0).sum()),
+            "icons_inside_ocr": int((icon_pass & ~out["icon_keep"]).sum()),
             "cap_need": int(out["cap_valid"].sum()) if "cap_valid" in out else 0,
             "kb": int(ctx.get("kb", 0)),
             "elements": len(elements),

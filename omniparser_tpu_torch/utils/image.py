@@ -43,3 +43,13 @@ def encode_image_base64(image_rgb: np.ndarray, fmt: str = "PNG") -> str:
     buf = io.BytesIO()
     Image.fromarray(image_rgb).save(buf, format=fmt)
     return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
+def load_image_rgb(path: str) -> np.ndarray:
+    """An image file -> RGB uint8 [H, W, 3]."""
+    from PIL import Image
+
+    img = Image.open(path)
+    if img.mode != "RGB":
+        img = img.convert("RGB")
+    return np.asarray(img)
