@@ -57,15 +57,40 @@ once without a card.  Phases, one JSON line each:
                   icon inside OCR and the caption decode must all happen);
                   parse_image with device_components and with
                   fused_candidates off, equal to the fused parse
+  families        the reference's other model families at full width, seeded,
+                  on the parse's screenshot: YOLOv9-E (SOMPipeline
+                  variant='v9e' @1280, parse_elements twice, equal; launches
+                  nms_keep 1, merge_masks 1, crop_resize 2; the parse's NMS
+                  window against nms_keep_plain; wall, device time, idle
+                  share, peak bytes; get_yolo_model(variant='v9e') + predict
+                  at 640 and 1280; a 3-class GELAN's class-offset NMS window
+                  against nms_keep_plain; the seeded GELAN written as a
+                  TorchScript archive under icon_detect_v3/ and loaded back
+                  through get_yolo_model(path) and Omniparser(dict), equal);
+                  the easyocr arch (TorchOCR(arch='easyocr', rec_height=64),
+                  CRAFT @1920 with its seeded region head scaled to find
+                  text: check_ocr_box -> get_som_labeled_img, a fused
+                  parse_image, K3's 64x480 line grid against its plain
+                  version, craft_mlt_25k.pth / english_g2.pth written and read
+                  back equal); BLIP-2 opt-2.7b built on the card
+                  (get_caption_model_processor('blip2'), 5 beams, 100 new
+                  tokens): get_som_labeled_img with OCR boxes made from the
+                  icons, so that icons are beam-captioned, twice and equal,
+                  K3's caption grid against its plain version, resident and
+                  peak bytes, beam-decode ms; a reduced BLIP-2 written as an
+                  HF safetensors directory and read back equal
   parity_on_card  the fused step on the card against the same step on the
                   CPU, same weights and image, float32, reduced size; then
                   that card pipeline's parse_batch of phase batch's four
                   screenshots against its parse_image of each (caption texts
                   that differ are counted); then get_som_labeled_img on both
                   with OCR boxes made from the CPU's icons (absorb and the
-                  icon drop must fire; every integer field equal)
+                  icon drop must fire; every integer field equal); then the
+                  families: a 'dualtest' GELAN's detect_graph, the easyocr
+                  arch's check_ocr_box (CRAFT @640, 64x480 lines) and
+                  TINY_BLIP2's 5-beam blip2_generate (tokens equal)
 
-Each path (parse, batch, serve, int8, compat) runs with the kernels' launch
+Each path (parse, batch, serve, int8, compat, families) runs with the kernels' launch
 counters set to 0 just before it and read just after, and fails if a kernel of
 the path was not launched.  Then the card's nvidia-smi line, one {"kernels": [...]}
 line (``launches``: the parse's counts) and, last, {"ok": true, "device":
@@ -75,11 +100,14 @@ line (``launches``: the parse's counts) and, last, {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1112,8 +1140,6 @@ def ultralytics_state_dict(state):
     """The port's YOLOv8 state_dict -> an ultralytics DetectionModel's keys
     (``model.{i}...``), the inverse of weights/convert_yolo.py's layer map.
     Both sides keep torch layouts, so only the names change."""
-    import re
-
     from omniparser_tpu_torch.weights.convert_yolo import _LAYER_MAP
 
     index = {name: i for i, name in _LAYER_MAP.items()}
@@ -1141,8 +1167,6 @@ def hf_florence_state_dict(state):
     remote-code spelling that weights/convert_florence.py reads), float32
     numpy, with the tied ``lm_head`` alias beside ``shared``.  Both sides
     keep torch layouts, so only the names change."""
-    import re
-
     out = {}
     for key, v in state.items():
         a = v.detach().float().cpu().numpy()
@@ -1336,7 +1360,6 @@ def phase_compat(seed: int, pipe, image, cfg, launches_by_path):
     with the parse's seeded networks carried through the upstream file
     formats, and the host-candidate OCR parses against the fused path."""
     import os
-    import tempfile
 
     from omniparser_tpu_torch import compat
     from omniparser_tpu_torch.models.ocr import TorchOCR
@@ -1490,6 +1513,594 @@ def phase_compat(seed: int, pipe, image, cfg, launches_by_path):
     del omni, caption, model
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ #
+# phase families: YOLOv9-E, the easyocr arch and BLIP-2 opt-2.7b
+# ------------------------------------------------------------------ #
+
+
+@contextlib.contextmanager
+def recording(owner, name: str):
+    """owner.name replaced, for the block, by a pass-through that keeps a
+    copy of every call's arguments: [(args, kwargs), ...]."""
+    real = getattr(owner, name)
+    calls = []
+
+    def wrapper(*args, **kw):
+        calls.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), dict(kw)))
+        return real(*args, **kw)
+
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, real)
+
+
+def check_nms_calls(case: str, calls) -> None:
+    """Each recorded NMS window through nms_keep against nms_keep_plain."""
+    from omniparser_tpu_torch.ops import hopper_kernels
+
+    if not calls:
+        fail(f"families: {case} ran no NMS")
+    for (b, v, thr), _ in calls:
+        want = hopper_kernels.nms_keep_plain(b, v, thr)
+        mism = int((hopper_kernels.nms_keep(b, v, thr) != want).sum())
+        emit("families", kernel="nms_keep", case=case, n=int(v.numel()), valid=int(v.sum()),
+             keeps=int(want.sum()), coord_max=float(b.abs().max()), thr=thr, mismatches=mism)
+        if mism:
+            fail(f"families: nms_keep disagrees with its plain version on {case}: {mism} slots")
+
+
+def check_crop_calls(case: str, calls) -> None:
+    """Each recorded crop-gather through crop_resize against its plain version."""
+    from omniparser_tpu_torch.ops import hopper_crop
+
+    if not calls:
+        fail(f"families: {case} gathered no crops")
+    for args, kw in calls:
+        got = hopper_crop.crop_resize(*args, **kw)
+        want = hopper_crop.crop_resize_plain(*args, **kw)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        emit("families", kernel="crop_resize", case=case, k=int(args[2].shape[0]),
+             out_hw=list(got.shape[1:3]), grid=kw.get("grid", "resize"), max_abs_diff=err,
+             atol=1e-2)
+        if not err <= 1e-2:
+            fail(f"families: crop_resize disagrees with its plain version on {case}: {err}")
+
+
+def sync_wall(call):
+    """(call's result, milliseconds to a synchronise after it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def yolov9_state_dict(state):
+    """The port's GELAN state_dict -> the yolov9 repository's keys
+    (``model.{i}...``), the inverse of weights/convert_yolov9.py's map."""
+    from omniparser_tpu_torch.weights.convert_yolov9 import _MODULE_ORDER, _MODULE_ORDER_DUAL
+
+    dual = any(k.startswith("stemA.") for k in state)
+    index = {name: i for i, name in enumerate(_MODULE_ORDER_DUAL if dual else _MODULE_ORDER)}
+    out = {}
+    for key, v in state.items():
+        top, rest = key.split(".", 1)
+        if top == "head":  # box{l}_{j} -> cv2.{l}.{j}, cls{l}_{j} -> cv3.{l}.{j}
+            kind, lvl, j, leaf = re.match(r"(box|cls)(\d)_(\d)\.(.+)$", rest).groups()
+            rest = f"{'cv2' if kind == 'box' else 'cv3'}.{lvl}.{j}.{leaf}"
+        else:
+            rest = re.sub(r"\b(cv[23])_csp\b", r"\1.0", rest)
+            rest = re.sub(r"\b(cv[23])_conv\b", r"\1.1", rest)
+            rest = re.sub(r"\bm(\d+)\b", r"m.\1", rest)
+        v = v.detach().cpu()
+        out[f"model.{index[top]}.{rest}"] = v.float() if v.is_floating_point() else v
+    return out
+
+
+def write_torchscript_state(path: str, sd) -> None:
+    """A TorchScript archive whose state dict is `sd` (the reference's
+    icon_detect_v3/model.pt is a TorchScript archive with yolov9 keys)."""
+    root = torch.nn.Module()
+    for k, v in sd.items():
+        parts, m = k.split("."), root
+        for p in parts[:-1]:
+            if p not in m._modules:
+                m.add_module(p, torch.nn.Module())
+            m = m._modules[p]
+        m.register_buffer(parts[-1], v)
+
+    class Holder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = root.model
+
+        def forward(self, x):
+            return x
+
+    torch.jit.trace(Holder(), torch.zeros(1)).save(path)
+
+
+def easyocr_state_dicts(det_state, rec_state):
+    """The port's Craft and VggCtcRecognizer state_dicts -> easyocr's
+    checkpoint keys (CRAFT under DataParallel's ``module.``), the inverse of
+    weights/convert_ocr.py's maps."""
+    from omniparser_tpu_torch.weights.convert_ocr import _CRAFT_VGG, _REC_FEATURES
+
+    owners = {f"basenet.{name}": (f"basenet.{conv}", f"basenet.{bn}" if bn else None)
+              for conv, bn, name in _CRAFT_VGG}
+    for i in range(1, 5):
+        owners[f"upconv{i}.c0"] = (f"upconv{i}.conv.0", f"upconv{i}.conv.1")
+        owners[f"upconv{i}.c1"] = (f"upconv{i}.conv.3", f"upconv{i}.conv.4")
+    for idx, name in ((0, "cls0"), (2, "cls1"), (4, "cls2"), (6, "cls3"), (8, "cls4")):
+        owners[name] = (f"conv_cls.{idx}", None)
+    for conv, bn, name in _REC_FEATURES:
+        owners[name] = (f"FeatureExtraction.{conv}", f"FeatureExtraction.{bn}" if bn else None)
+
+    def rename(state, prefix=""):
+        out = {}
+        for key, v in state.items():
+            m = re.match(r"(.+)\.(conv|bn)\.(\w+)$", key)
+            r = re.match(r"rnn(\d)\.(rnn|linear)\.(\w+)$", key)
+            if m and m.group(1) in owners:
+                owner, kind, leaf = m.groups()
+                new = owners[owner][0 if kind == "conv" else 1] + "." + leaf
+            elif r:
+                new = "SequenceModeling.{}.{}.{}".format(*r.groups())
+            elif key.startswith("pred."):
+                new = "Prediction." + key[len("pred."):]
+            else:
+                raise KeyError(f"no easyocr spelling for {key!r}")
+            v = v.detach().cpu()
+            out[prefix + new] = v.float() if v.is_floating_point() else v
+        return out
+
+    return rename(det_state, "module."), rename(rec_state)
+
+
+_HF_VISION = {"attn.qkv": "self_attn.qkv", "attn.projection": "self_attn.projection",
+              "fc1": "mlp.fc1", "fc2": "mlp.fc2", "ln1": "layer_norm1", "ln2": "layer_norm2"}
+_HF_QFORMER = {"fc1": "intermediate_query.dense", "fc2": "output_query.dense",
+               "ffn_ln": "output_query.LayerNorm"}
+for _side, _hf in (("self", "attention"), ("cross", "crossattention")):
+    _HF_QFORMER.update({f"{_side}.{p}": f"{_hf}.attention.{p}" for p in ("query", "key", "value")})
+    _HF_QFORMER[f"{_side}.output_dense"] = f"{_hf}.output.dense"
+    _HF_QFORMER[f"{_side}.output_ln"] = f"{_hf}.output.LayerNorm"
+
+
+def hf_blip2_state_dict(state):
+    """The port's Blip2 state_dict -> HF modeling_blip_2's keys, float32
+    numpy, with the tied ``lm_head`` beside the token table: the inverse of
+    weights/convert_blip2.py's map (both keep torch layouts)."""
+    out = {}
+    for key, v in state.items():
+        a = v.detach().float().cpu().numpy()
+        if m := re.match(r"vision_model\.l(\d+)_(.+)\.(\w+)$", key):
+            i, mid, leaf = m.groups()
+            key = f"vision_model.encoder.layers.{i}.{_HF_VISION[mid]}.{leaf}"
+        elif m := re.match(r"qformer\.l(\d+)_(.+)\.(\w+)$", key):
+            i, mid, leaf = m.groups()
+            key = f"qformer.encoder.layer.{i}.{_HF_QFORMER[mid]}.{leaf}"
+        elif m := re.match(r"language_model\.layer(\d+)\.(.+)\.(\w+)$", key):
+            i, mid, leaf = m.groups()
+            mid = f"self_attn.{mid}" if mid.endswith("_proj") else mid
+            key = f"language_model.model.decoder.layers.{i}.{mid}.{leaf}"
+        elif key.startswith("language_model."):
+            key = "language_model.model.decoder." + key[len("language_model."):]
+        elif key == "vision_model.class_embedding":
+            key, a = "vision_model.embeddings.class_embedding", a.reshape(1, 1, -1)
+        elif key == "vision_model.position_embedding":
+            key, a = "vision_model.embeddings.position_embedding", a[None]
+        elif key.startswith("vision_model.patch_embedding."):
+            key = "vision_model.embeddings." + key[len("vision_model."):]
+        elif key == "qformer.query_tokens":
+            key = "query_tokens"
+        out[key] = a
+    out["language_model.lm_head.weight"] = out["language_model.model.decoder.embed_tokens.weight"]
+    return out
+
+
+def calibrate_craft_head(ocr, image, scale: float = 20.0, share: float = 0.15) -> float:
+    """Seeded CRAFT draws no region above the detector's 0.3: scale its
+    region head by `scale` and set the head's bias so that `share` of this
+    image's region map lies above 0.3 (tests/test_torch_easyocr.py does the
+    same to its numpy weights).  Returns the bias."""
+    from omniparser_tpu_torch.ops.preprocess import letterbox, pad_to_bucket, pick_bucket_2d
+
+    h, w = image.shape[:2]
+    padded = torch.from_numpy(pad_to_bucket(image, *pick_bucket_2d(h, w))[0]).to(ocr.device)
+    img, _, _ = letterbox(padded, (h, w), ocr.config.det_imgsz)
+    head = ocr.det.cls4.conv
+    with torch.no_grad():
+        raw = ocr.det(img.permute(2, 0, 1)[None])[0, 0].float()
+        centred = (raw - head.bias[0].float()) * scale
+        bias = 0.3 + 1e-3 - torch.quantile(centred.flatten(), 1.0 - share)
+        head.weight[0] *= scale
+        head.bias[0] = bias
+    return float(bias)
+
+
+def family_yolov9(seed: int, pipe, image, launches_by_path):
+    """YOLOv9-E through SOMPipeline at 1280, the reference wrapper's predict
+    at 640 and 1280, a 3-class GELAN's per-class NMS window, and a seeded
+    GELAN written as a TorchScript archive under icon_detect_v3/ and loaded
+    back through get_yolo_model and Omniparser(dict)."""
+    import os
+
+    from omniparser_tpu_torch import compat
+    from omniparser_tpu_torch.models.yolov9 import YOLOv9Detector
+    from omniparser_tpu_torch.ocr import NullOCR
+    from omniparser_tpu_torch.ops import nms as nms_mod
+    from omniparser_tpu_torch.pipeline import NullCaptioner, Omniparser, SOMPipeline
+    from omniparser_tpu_torch.weights.init import build_module
+
+    dev = pipe.device
+    cfg = dataclasses.replace(pipe.config,
+                              detector=dataclasses.replace(pipe.config.detector, variant="v9e"))
+    v9, build_ms = sync_wall(lambda: SOMPipeline(cfg, dev, ocr=pipe.ocr, captioner=pipe.captioner,
+                                                 seed=seed))
+    if not isinstance(v9.detector, YOLOv9Detector) or v9.detector.variant != "e":
+        fail(f"families: variant 'v9e' built {v9.detector}")
+
+    def parse():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return v9.parse_elements(image)
+
+    parse()  # warm-up: the first launches at these shapes
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (labels_a, elements_a), wall_a = sync_wall(parse)
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    c = dict(v9.last_counts)
+    (labels_b, elements_b), wall_b = sync_wall(parse)
+    path_counts("v9e_parse", counts, launches_by_path)
+    with recording(nms_mod, "nms_keep") as calls:
+        parse()
+    check_nms_calls("v9e_parse_window", calls)
+    walls = [sync_wall(parse)[1] for _ in range(3)]
+    prof = profile_pass(lambda: sync_wall(parse)[1], walls)
+    v9.stage_ms = {}  # one more parse with each stage synchronised
+    parse()
+    emit("families", family="yolov9", path="SOMPipeline(variant='v9e') parse_elements @1280",
+         build_ms=round(build_ms, 1), counts=c, launches=counts,
+         wall_ms=[round(wall_a, 2), round(wall_b, 2)], profile=prof,
+         device_stage_ms={k: round(v, 3) for k, v in v9.stage_ms.items()},
+         max_memory_allocated=peak, elements=len(elements_a))
+    want = {"nms_keep": 1, "merge_masks": 1, "crop_resize": 2, "overlap_matrices": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"families: the v9e parse launched {counts} (want {want})")
+    if elements_a != elements_b or labels_a != labels_b:
+        fail("families: two v9e parses of the same image differ")
+    del v9
+
+    # the reference wrapper's predict, from get_yolo_model(variant='v9e')
+    det, module = compat.get_yolo_model(variant="v9e", device=dev)
+    predicted = {}
+    for imgsz in (640, 1280):
+        det.predict(module, image, conf=0.05, imgsz=imgsz)  # warm-up
+        reset_counts()
+        (res,), ms = sync_wall(lambda: det.predict(module, image, conf=0.05, imgsz=imgsz))
+        counts = all_counts()
+        launches_by_path[f"v9e_predict_{imgsz}"] = counts
+        predicted[imgsz] = {"boxes": int(len(res.boxes.conf)), "ms": round(ms, 2),
+                            "launches": counts}
+        if counts["nms_keep"] != 1 or not len(res.boxes.conf):
+            fail(f"families: predict at {imgsz} launched {counts}, kept {len(res.boxes.conf)}")
+    # per-class NMS: 3 classes, boxes moved by class x (max - min + 1)
+    det3 = YOLOv9Detector(variant="e", num_classes=3)
+    module3 = build_module(det3.make_module(), None, torch.Generator().manual_seed(seed + 3),
+                           torch.bfloat16, dev)
+    with recording(nms_mod, "nms_keep") as calls:
+        (res3,) = det3.predict(module3, image, conf=0.05, imgsz=1280)
+    check_nms_calls("v9e_3class_offset_window", calls)
+    del det3, module3
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_v9_") as tmp:
+        path = os.path.join(tmp, "icon_detect_v3", "model.pt")
+        os.makedirs(os.path.dirname(path))
+        _, write_ms = sync_wall(lambda: write_torchscript_state(
+            path, yolov9_state_dict(module.state_dict())))
+        (det_l, module_l), load_ms = sync_wall(lambda: compat.get_yolo_model(path, device=dev))
+        bad = state_mismatches(module_l.state_dict(), module.state_dict())
+        omni, omni_ms = sync_wall(lambda: Omniparser({"som_model_path": path}, device=dev,
+                                                     ocr=NullOCR(), captioner=NullCaptioner()))
+        bad += state_mismatches(omni.pipeline.det_module.state_dict(), module.state_dict())
+        nbytes = os.path.getsize(path)
+    emit("families", family="yolov9", predict=predicted, three_class_kept=len(res3.boxes.conf),
+         torchscript={"path": "icon_detect_v3/model.pt", "bytes": nbytes,
+                      "write_ms": round(write_ms, 1), "get_yolo_model_ms": round(load_ms, 1),
+                      "omniparser_dict_ms": round(omni_ms, 1),
+                      "omniparser_detector": type(omni.pipeline.detector).__name__ + "/"
+                      + omni.pipeline.detector.variant},
+         state_equal=not bad, differing_keys=bad[:8])
+    if bad or not isinstance(omni.pipeline.detector, YOLOv9Detector) or \
+            not isinstance(det_l, YOLOv9Detector):
+        fail(f"families: the icon_detect_v3 archive loaded back differently: {bad[:8]}")
+    del omni, module, module_l
+    torch.cuda.empty_cache()
+
+
+def family_easyocr(seed: int, pipe, image, launches_by_path):
+    """TorchOCR(arch='easyocr', rec_height=64): CRAFT at 1920 through
+    check_ocr_box -> get_som_labeled_img and through a fused parse_image,
+    K3's 64x480 line grid against its plain version, and the seeded
+    networks written as craft_mlt_25k.pth / english_g2.pth and read back."""
+    import os
+
+    from omniparser_tpu_torch import compat
+    from omniparser_tpu_torch.models.ocr import TorchOCR
+    from omniparser_tpu_torch.ops import hopper_crop
+    from omniparser_tpu_torch.pipeline import SOMPipeline
+    from omniparser_tpu_torch.weights.convert_ocr import load_easyocr_states
+
+    dev = pipe.device
+    ocfg = dataclasses.replace(pipe.config.ocr, arch="easyocr", rec_height=64, text_threshold=0.0)
+    ocr, build_ms = sync_wall(lambda: TorchOCR(ocfg, dev,
+                                               generator=torch.Generator().manual_seed(seed + 5)))
+    bias = calibrate_craft_head(ocr, image)
+    model = (pipe.detector, pipe.det_module)
+    args = {"text_threshold": 0.0}
+
+    def two_calls():
+        (texts, boxes), _ = compat.check_ocr_box(image, output_bb_format="xyxy",
+                                                 easyocr_args=args, backend=ocr, device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, _, elements = compat.get_som_labeled_img(
+                image, model, BOX_TRESHOLD=pipe.config.detector.box_threshold, ocr_bbox=boxes,
+                ocr_text=texts, device=dev)
+        return texts, boxes, elements
+
+    two_calls()  # warm-up
+    (((texts, boxes), _), ocr_ms) = sync_wall(lambda: compat.check_ocr_box(
+        image, output_bb_format="xyxy", easyocr_args=args, backend=ocr, device=dev))
+    reset_counts()
+    (_, _, elements), calls_ms = sync_wall(two_calls)
+    counts = all_counts()
+    path_counts("easyocr_check_ocr_box_get_som", counts, launches_by_path)
+    emit("families", family="easyocr", path="check_ocr_box -> get_som_labeled_img, CRAFT @1920",
+         build_ms=round(build_ms, 1), craft_head_bias=bias, check_ocr_box_ms=round(ocr_ms, 2),
+         two_calls_ms=round(calls_ms, 2), ocr_boxes=len(boxes), sample=texts[:3],
+         elements=len(elements), launches=counts)
+    if not boxes:
+        fail("families: check_ocr_box with the easyocr arch found no text at threshold 0")
+
+    ep = SOMPipeline(dataclasses.replace(pipe.config, ocr=ocfg), dev, detector=pipe.detector,
+                     det_module=pipe.det_module, ocr=ocr, captioner=pipe.captioner)
+
+    def parse():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return ep.parse_image(image)
+
+    parse()  # warm-up
+    reset_counts()
+    (_, _, el_a), wall_a = sync_wall(parse)
+    counts = all_counts()
+    c = dict(ep.last_counts)
+    path_counts("easyocr_parse", counts, launches_by_path)
+    with recording(hopper_crop, "crop_resize") as calls:
+        _, _, el_b = parse()
+    lines = [call for call in calls if call[1].get("grid") == "line"]
+    check_crop_calls("easyocr_line_grid", lines)
+    ep.stage_ms = {}  # one more parse with each stage synchronised
+    parse()
+    emit("families", family="easyocr", path="SOMPipeline(ocr arch 'easyocr') parse_image",
+         wall_ms=round(wall_a, 2), counts=c, launches=counts,
+         device_stage_ms={k: round(v, 3) for k, v in ep.stage_ms.items()},
+         line_grid=[list(call[0][3]) for call in lines])
+    # the line grid once per block of rec_block lines, then the caption grid
+    if counts["nms_keep"] != 1 or counts["merge_masks"] != 1 or \
+            counts["crop_resize"] != len(lines) + 1:
+        fail(f"families: the easyocr parse launched {counts} ({len(lines)} line blocks)")
+    if c["ocr_candidates"] < 1 or el_a != el_b:
+        fail(f"families: the easyocr parse had {c['ocr_candidates']} candidates, "
+             f"or two parses differ")
+    if any(tuple(call[0][3]) != (64, ocfg.rec_max_width) for call in lines):
+        fail("families: the easyocr line grid is not 64 rows")
+    del ep
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_easyocr_") as tmp:
+        craft_sd, rec_sd = easyocr_state_dicts(ocr.det.state_dict(), ocr.rec.state_dict())
+        craft_p, rec_p = os.path.join(tmp, "craft_mlt_25k.pth"), os.path.join(tmp, "english_g2.pth")
+        torch.save(craft_sd, craft_p)
+        torch.save(rec_sd, rec_p)
+        (det_s, rec_s), load_ms = sync_wall(lambda: load_easyocr_states(craft_p, rec_p))
+        nbytes = os.path.getsize(craft_p) + os.path.getsize(rec_p)
+    drop = lambda s: {k: v for k, v in s.items() if not k.endswith("num_batches_tracked")}
+    bad = (state_mismatches(det_s, drop(ocr.det.state_dict()))
+           + state_mismatches(rec_s, drop(ocr.rec.state_dict())))
+    emit("families", family="easyocr", checkpoints={"files": ["craft_mlt_25k.pth",
+                                                              "english_g2.pth"],
+                                                    "bytes": nbytes, "load_ms": round(load_ms, 1)},
+         state_equal=not bad, differing_keys=bad[:8])
+    if bad:
+        fail(f"families: the easyocr checkpoints loaded back differently: {bad[:8]}")
+    del ocr
+    torch.cuda.empty_cache()
+
+
+def family_blip2(seed: int, pipe, image, launches_by_path):
+    """BLIP-2 opt-2.7b seeded on the card (get_caption_model_processor):
+    get_som_labeled_img with OCR boxes made from the detector's icons, so
+    that icons are captioned by 5-beam search; two calls equal; K3's caption
+    grid against its plain version; a reduced BLIP-2 written as an
+    HF-spelled safetensors directory and read back."""
+    import os
+
+    from omniparser_tpu_torch import compat
+    from omniparser_tpu_torch.models.blip2 import BLIP2_OPT_2_7B, build_blip2
+    from omniparser_tpu_torch.ops import hopper_crop
+    from omniparser_tpu_torch.weights.convert_blip2 import load_blip2_state
+    from omniparser_tpu_torch.weights.safetensors import write_safetensors
+
+    dev = pipe.device
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cap, build_ms = sync_wall(lambda: compat.get_caption_model_processor("blip2", device=dev))
+    resident = torch.cuda.memory_allocated() - before
+    n_params = sum(p.numel() for p in cap.model.parameters())
+    decode_ms = []
+    generate = cap.generate
+
+    def timed_generate(crops):
+        out, ms = sync_wall(lambda: generate(crops))
+        decode_ms.append(round(ms, 2))
+        return out
+
+    cap.generate = timed_generate
+    model = (pipe.detector, pipe.det_module)
+    icons, _, _ = compat.predict_yolo(model, image, 0.05, device=dev,
+                                      iou_threshold=pipe.config.detector.nms_iou_threshold)
+    made_boxes, made_texts = provided_ocr_boxes(icons, *image.shape[:2])
+
+    def call():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return compat.get_som_labeled_img(image, model, BOX_TRESHOLD=0.05,
+                                              ocr_bbox=made_boxes, ocr_text=made_texts,
+                                              caption_model_processor=cap, device=dev)[2]
+
+    with recording(hopper_crop, "crop_resize") as crops:
+        elements_a = call()  # also the warm-up
+    check_crop_calls("blip2_caption_grid", crops)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    elements_b, ms = sync_wall(call)
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    path_counts("blip2_get_som_labeled_img", counts, launches_by_path)
+    cached = [p for p in compat._PIPELINE_CACHE.values() if p.captioner is cap]
+    c = dict(cached[0].last_counts)
+    captions = [e["content"] for e in elements_b if e["source"] == "box_yolo_content_yolo"]
+    emit("families", family="blip2", path="get_som_labeled_img, BLIP-2 opt-2.7b, 5 beams, "
+         f"{cap.max_new_tokens} new tokens", params=n_params, build_ms=round(build_ms, 1),
+         resident_bytes=resident, max_memory_allocated=peak, get_som_labeled_img_ms=round(ms, 2),
+         beam_decode_ms=decode_ms, caption_batches=len(decode_ms) // 2, counts=c,
+         captions=len(captions), sample=captions[:3], launches=counts,
+         ocr_absorbed=c["ocr_absorbed"], icons_inside_ocr=c["icons_inside_ocr"])
+    if not any(isinstance(t, str) and t.strip() for t in captions):
+        fail("families: BLIP-2 captioned no icon")
+    if elements_a != elements_b:
+        fail("families: two BLIP-2 get_som_labeled_img calls gave different captions")
+    if counts["nms_keep"] != 1 or counts["merge_masks"] != 1:
+        fail(f"families: the BLIP-2 call launched {counts}")
+    compat._PIPELINE_CACHE.clear()
+    del cap, cached
+    torch.cuda.empty_cache()
+
+    # an HF-spelled safetensors directory from a reduced BLIP-2 (full widths)
+    red = dataclasses.replace(BLIP2_OPT_2_7B, vision_layers=2, qformer_layers=2, lm_layers=2)
+    small = build_blip2(red, None, torch.float32, dev, seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_blip2_") as tmp:
+        _, write_ms = sync_wall(lambda: write_safetensors(
+            os.path.join(tmp, "model.safetensors"), hf_blip2_state_dict(small.state_dict())))
+        state, load_ms = sync_wall(lambda: load_blip2_state(tmp, red))
+        nbytes = os.path.getsize(os.path.join(tmp, "model.safetensors"))
+    bad = state_mismatches(state, small.state_dict())
+    emit("families", family="blip2", hf_dir={"dims": "opt-2.7b widths, 2+2+2 layers",
+                                             "bytes": nbytes, "write_ms": round(write_ms, 1),
+                                             "load_ms": round(load_ms, 1)},
+         state_equal=not bad, differing_keys=bad[:8])
+    if bad:
+        fail(f"families: the BLIP-2 directory loaded back differently: {bad[:8]}")
+    del small, state
+    torch.cuda.empty_cache()
+
+
+def phase_families(seed: int, pipe, image, launches_by_path):
+    """The reference's other model families at full width, seeded: each
+    path's counters at 0 just before it and read just after."""
+    family_yolov9(seed, pipe, image, launches_by_path)
+    family_easyocr(seed, pipe, image, launches_by_path)
+    family_blip2(seed, pipe, image, launches_by_path)
+
+
+def parity_families(seed: int, dev: str = "cuda"):
+    """The families on the card (`dev`) against the CPU in float32 (TF32
+    off, set by the caller), same weights and inputs: a 'dualtest' GELAN's
+    detect_graph, the easyocr arch at a reduced size, TINY_BLIP2's beam
+    search (tokens equal)."""
+    from omniparser_tpu_torch import compat
+    from omniparser_tpu_torch.config import OcrConfig
+    from omniparser_tpu_torch.models.blip2 import TINY_BLIP2, blip2_generate, build_blip2
+    from omniparser_tpu_torch.models.ocr import TorchOCR
+    from omniparser_tpu_torch.models.yolov9 import YOLOv9Detector
+    from omniparser_tpu_torch.ops.preprocess import pad_to_bucket, pick_bucket_2d
+    from omniparser_tpu_torch.weights.init import build_module
+
+    image = synthetic_screenshot(np.random.default_rng(seed + 1))[:540, :960].copy()
+    h, w = image.shape[:2]
+    padded = pad_to_bucket(image, *pick_bucket_2d(h, w))[0]
+
+    det = YOLOv9Detector(variant="dualtest", num_classes=2, imgsz=640, max_det=128,
+                         prefilter=1024)
+    cpu_m = build_module(det.make_module(), None, torch.Generator().manual_seed(seed),
+                         torch.float32, "cpu")
+    gpu_m = build_module(det.make_module(), cpu_m.state_dict(), None, torch.float32, dev)
+    # seeded scores crowd near 0.5: a threshold with about 600 candidates
+    # above it (the window holds them all) keeps the sort's near-ties few
+    raw = det.detect_graph(cpu_m, torch.from_numpy(padded), (h, w), 0.05, 0.5,
+                           with_raw=True)[-1][1]
+    thr = float(torch.sort(raw, descending=True).values[min(600, raw.numel() - 1)])
+    out = {}
+    for name, m in (("cpu", cpu_m), ("cuda", gpu_m)):
+        r = det.detect_graph(m, torch.from_numpy(padded).to(next(m.parameters()).device),
+                             (h, w), thr, 0.5, with_stats=True)
+        out[name] = [t.cpu() for t in r]
+    (bc, sc, vc, oc), (bg, sg, vg, og) = out["cpu"], out["cuda"]
+    both = vc & vg
+    slots = int((vc != vg).sum())
+    diff = {"det_boxes": float((bc - bg)[both].abs().max()) if both.any() else 0.0,
+            "det_scores": float((sc - sg)[both].abs().max()) if both.any() else 0.0}
+    emit("parity_on_card", check="'dualtest' GELAN detect_graph, CPU against card, float32",
+         box_threshold=thr, kept={"cpu": int(vc.sum()), "cuda": int(vg.sum())},
+         differing_slots=slots,
+         overflow={"cpu": int(oc), "cuda": int(og)}, max_abs_diff=diff)
+    if slots > PARITY_MAX_SLOTS or not vc.any():
+        fail(f"parity_on_card: the GELAN keep set differs in {slots} slots")
+    for k, v in diff.items():
+        if not v <= PARITY_ATOL[k]:
+            fail(f"parity_on_card: GELAN {k} differs by {v}")
+
+    ocfg = OcrConfig(arch="easyocr", det_imgsz=640, rec_height=64, dtype="float32",
+                     text_threshold=0.0)
+    cpu_ocr = TorchOCR(ocfg, "cpu", generator=torch.Generator().manual_seed(seed + 5))
+    calibrate_craft_head(cpu_ocr, image)
+    gpu_ocr = TorchOCR(ocfg, dev, cpu_ocr.det.state_dict(), cpu_ocr.rec.state_dict())
+    got = {}
+    for name, o in (("cpu", cpu_ocr), ("cuda", gpu_ocr)):
+        (texts, boxes), _ = compat.check_ocr_box(image, output_bb_format="xyxy", backend=o,
+                                                 device=o.device)
+        got[name] = (texts, [list(b) for b in boxes])
+    (tc, bc_), (tg, bg_) = got["cpu"], got["cuda"]
+    box_slots = len(set(map(tuple, bc_)) ^ set(map(tuple, bg_)))
+    text_slots = sum(a != b for a, b in zip(tc, tg)) + abs(len(tc) - len(tg))
+    emit("parity_on_card", check="easyocr arch check_ocr_box (CRAFT @640, 64x480 lines), "
+         "CPU against card, float32", boxes={"cpu": len(bc_), "cuda": len(bg_)},
+         differing_boxes=box_slots, differing_texts=text_slots, sample=tg[:3])
+    if not bc_ or box_slots > PARITY_MAX_SLOTS or text_slots > PARITY_MAX_SLOTS:
+        fail(f"parity_on_card: easyocr boxes differ in {box_slots}, texts in {text_slots}")
+
+    cpu_b = build_blip2(TINY_BLIP2, None, torch.float32, "cpu", seed)
+    gpu_b = build_blip2(TINY_BLIP2, cpu_b.state_dict(), torch.float32, dev)
+    rng = np.random.default_rng(seed + 9)
+    px = torch.from_numpy(rng.random((4, 3, 28, 28), np.float32))
+    prompt = torch.tensor([[2, 40, 41, 42]] * 4)
+    toks = {}
+    for name, d in (("cpu", "cpu"), ("cuda", dev)):
+        m = cpu_b if name == "cpu" else gpu_b
+        toks[name] = blip2_generate(m, px.to(d), prompt.to(d), 12, 5)[0].cpu()
+    same = bool(torch.equal(toks["cpu"], toks["cuda"]))
+    emit("parity_on_card", check="TINY_BLIP2 blip2_generate, 5 beams, 12 tokens, CPU against "
+         "card, float32", tokens_equal=same, tokens=toks["cuda"].tolist())
+    if not same:
+        fail("parity_on_card: TINY_BLIP2 beam search gave other tokens on the card")
 
 
 # tests/test_quant.py's bounds on the int8 logits, over the float logits' std
@@ -1727,8 +2338,10 @@ def phase_parity(seed: int):
     del wit
     # the reference's two-call API with provided OCR boxes (ROADMAP C.10)
     parity_compat(cpu, gpu, image)
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    parity_families(seed)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    del gpu
     torch.cuda.empty_cache()
 
 
@@ -1748,6 +2361,7 @@ def main() -> None:
     phase_serve(args.seed, pipe, images, single, launches_by_path)
     phase_int8(pipe, image, launches_by_path)
     phase_compat(args.seed, pipe, image, pipe.config, launches_by_path)
+    phase_families(args.seed, pipe, image, launches_by_path)
     emit("launches", by_path=launches_by_path)
     del pipe, single
     torch.cuda.empty_cache()

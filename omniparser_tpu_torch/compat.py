@@ -16,10 +16,11 @@ site ports with an import swap:
         image, model, BOX_TRESHOLD=0.05, ocr_bbox=boxes, ocr_text=texts,
         caption_model_processor=caption)
 
-A model is a ``(Detector, module)`` pair.  Every function that computes on a
-device takes ``device=`` (default the card); a model handed to one must be
-on that device.  The YOLOv9, BLIP-2 and Phi-3-V routes are not ported and
-raise ``NotImplementedError`` naming their ROADMAP item.
+A model is a ``(Detector, module)`` pair (a ``YOLOv9Detector`` is a
+``Detector``).  Every function that computes on a device takes ``device=``
+(default the card); a model handed to one must be on that device.  The
+Phi-3-V route is not ported and raises ``NotImplementedError`` naming
+ROADMAP A.8.
 """
 
 from __future__ import annotations
@@ -226,35 +227,47 @@ def predict(model, image, caption: str, box_threshold: float, text_threshold: fl
 
 
 def get_yolo_model(model_path: Optional[str] = None, variant: str = "n", device="cuda"):
-    """(Detector, module) from an ultralytics ``.pt`` or torch state_dict
-    (``weights/convert_yolo.py``), or a seeded init without a path.  The
-    reference routes ``icon_detect_v3`` paths to its YOLOv9-E wrapper; that
-    route, and an explicit 'v9*' variant, are not ported."""
-    import pathlib
+    """(Detector, module): YOLOv8 from an ultralytics ``.pt`` or torch
+    state_dict (``weights/convert_yolo.py``); an ``icon_detect_v3`` path or
+    a 'v9*' variant builds the GELAN family, as the reference routes any
+    ``icon_detect_v3`` path to its YOLOv9-E wrapper (a yolov9 TorchScript
+    or state dict, ``weights/convert_yolov9.py``); a seeded init without a
+    path.
 
-    from omniparser_tpu_torch.models.yolov8 import Detector
-    from omniparser_tpu_torch.weights.convert_yolo import load_detector_state
+    Deliberate default, as the JAX package's: with no path and no variant
+    this is YOLOv8-n (the reference defaults to YOLOv9-E there); pass
+    variant='v9e' for the reference's default."""
+    from omniparser_tpu_torch.pipeline import (
+        detector_state_from_field,
+        detector_variant,
+        make_detector,
+    )
     from omniparser_tpu_torch.weights.init import build_module
 
-    if (variant.startswith("v9")
-            or (model_path and "icon_detect_v3" in pathlib.Path(model_path).parts)):
-        raise NotImplementedError("the YOLOv9 (GELAN) detector is not ported: ROADMAP A.5")
-    det = Detector(variant=variant, num_classes=1)
-    state = load_detector_state(model_path, det) if model_path else None
-    module = build_module(det.make_module(), state, torch.Generator().manual_seed(0),
-                          getattr(torch, DetectorConfig.dtype), resolve_device(device))
+    dev = resolve_device(device)
+    det = make_detector(DetectorConfig(variant=detector_variant(variant, model_path)))
+    module = build_module(det.make_module(), detector_state_from_field(model_path, det),
+                          torch.Generator().manual_seed(0), getattr(torch, DetectorConfig.dtype),
+                          dev)
     return det, module
 
 
 def get_caption_model_processor(model_name: str = "florence2",
                                 model_name_or_path: Optional[str] = None, device="cuda"):
     """A captioner (the reference's model + processor pair in one object):
-    Florence-2 from an HF checkpoint directory, or a seeded
-    florence-2-base without a path."""
+    Florence-2 from an HF checkpoint directory, or a seeded florence-2-base
+    without a path; 'blip2' (the reference's beam settings: 5 beams, 100
+    new tokens) from an HF blip2-opt-2.7b directory
+    (``weights/convert_blip2.py``), or seeded at full width without one."""
     from omniparser_tpu_torch.models.florence2 import FlorenceCaptioner
 
     if model_name == "blip2":
-        raise NotImplementedError("the BLIP-2 captioner is not ported: ROADMAP A.7")
+        from omniparser_tpu_torch.models.blip2 import Blip2Captioner
+
+        cfg = CaptionerConfig(model_name="blip2", backend="blip2", max_new_tokens=100)
+        if model_name_or_path:
+            return Blip2Captioner.from_checkpoint(model_name_or_path, cfg, device=device)
+        return Blip2Captioner(cfg, device=device)
     if "phi3" in model_name:
         raise NotImplementedError("the Phi-3-V captioner is not ported: ROADMAP A.8")
     if model_name != "florence2":

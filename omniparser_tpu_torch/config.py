@@ -16,9 +16,12 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
-    """YOLOv8-class icon detector settings."""
+    """Icon detector settings."""
 
-    variant: str = "n"  # n / s / m
+    # YOLOv8: 'n' / 's' / 'm' / 'l' / 'x'; the GELAN family (YOLOv9, the
+    # reference v2's icon_detect_v3 is a YOLOv9-E): 'v9e' / 'v9c', and the
+    # tiny test forms 'v9test' / 'v9dualtest'
+    variant: str = "n"
     num_classes: int = 1
     # static letterbox sizes (longest side); input is letterboxed to a square
     imgsz_buckets: Tuple[int, ...] = (640, 960, 1280, 1920)
@@ -39,7 +42,9 @@ class CaptionerConfig:
     decode of 20 new tokens."""
 
     model_name: str = "florence2"
-    backend: str = "florence"  # 'florence' | 'null' in this package
+    # 'florence' | 'blip2' (beam search, not fused into the device step) |
+    # 'null'; 'phi3v' is not ported (ROADMAP A.8)
+    backend: str = "florence"
     crop_size: int = 64
     batch_size: int = 128
     max_new_tokens: int = 20
@@ -68,12 +73,15 @@ class OcrConfig:
     """OCR stage settings.
 
     backend: 'jax' keeps its name from the JAX package and selects the
-    first-party DBNet-style detector + CTC recognizer (here in PyTorch);
-    'null' = no OCR (detection-only parse).
+    device OCR (here in PyTorch); 'null' = no OCR (detection-only parse).
+    arch, for that backend: 'native' = the first-party DBNet-style detector
+    + CTC recogniser; 'easyocr' = CRAFT + the english_g2 VGG-BiLSTM-CTC
+    recogniser (the reference's OCR stack; set rec_height=64), seeded or
+    loaded from craft_mlt_25k.pth / english_g2.pth.
     """
 
     backend: str = "jax"
-    arch: str = "native"  # 'easyocr' is not ported yet
+    arch: str = "native"
     easyocr_craft_pth: Optional[str] = None
     easyocr_rec_pth: Optional[str] = None
     text_threshold: float = 0.8

@@ -1,4 +1,5 @@
-"""OCR in PyTorch: DBNet-style text detector + CTC line recogniser.
+"""OCR in PyTorch: DBNet-style text detector + CTC line recogniser (and,
+with ``OcrConfig.arch='easyocr'``, the networks of ``models/ocr_easy``).
 
   * detector: 4-stage conv backbone -> FPN merge at 1/4 scale -> 1-channel
     probability map at 1/2 scale (threshold + component boxes);
@@ -318,28 +319,57 @@ def merge_paragraphs(texts: List[str], boxes: List[List[int]], y_gap: float = 0.
 
 
 class TorchOCR:
-    """The first-party OCR backend: both nets, the fused letterbox +
-    detector + components step, and the recogniser's preprocessing."""
+    """The device OCR backend: both nets, the fused letterbox + detector +
+    components step, and the recogniser's preprocessing.
+
+    ``config.arch``: 'native' (``TextDetector`` + ``TextRecognizer``) or
+    'easyocr' (``Craft`` + ``VggCtcRecognizer``, the reference's stack, with
+    easyocr's charset; weights from ``config.easyocr_craft_pth`` /
+    ``easyocr_rec_pth`` where given, ``weights/convert_ocr.py``).  Explicit
+    states win over the config's files; None initialises from `generator`."""
 
     def __init__(self, config: OcrConfig, device="cuda", det_state=None,
                  rec_state=None, generator: Optional[torch.Generator] = None):
         from omniparser_tpu_torch.utils.device import resolve_device
         from omniparser_tpu_torch.weights.init import build_module
 
-        if config.arch != "native":
-            raise NotImplementedError(f"OCR arch {config.arch!r} is not ported")
         self.config = config
         self.device = resolve_device(device)
-        self.charset = CHARSET
         dtype = getattr(torch, config.dtype)
-        self.det = build_module(TextDetector(), det_state, generator, dtype, self.device,
-                                keep_f32=("Conv_3",))
-        self.rec = build_module(
-            TextRecognizer(seq_len=config.rec_max_width // 4), rec_state, generator,
-            dtype, self.device, keep_f32=("ctc_head",))
+        if config.arch == "easyocr":
+            from omniparser_tpu_torch.models import ocr_easy
+
+            if det_state is None and rec_state is None and (
+                    config.easyocr_craft_pth or config.easyocr_rec_pth):
+                from omniparser_tpu_torch.weights.convert_ocr import load_easyocr_states
+
+                det_state, rec_state = load_easyocr_states(config.easyocr_craft_pth,
+                                                           config.easyocr_rec_pth)
+            self.charset = ocr_easy.EASYOCR_EN_CHARSET
+            self.det = build_module(ocr_easy.Craft(), det_state, generator, dtype,
+                                    self.device, keep_f32=ocr_easy.CRAFT_F32)
+            self.rec = build_module(ocr_easy.VggCtcRecognizer(), rec_state, generator, dtype,
+                                    self.device, keep_f32=ocr_easy.RECOGNIZER_F32)
+            # the 2x2 conv without padding after the /4 pools
+            self.rec_len = config.rec_max_width // 4 - 1
+        elif config.arch == "native":
+            self.charset = CHARSET
+            self.det = build_module(TextDetector(), det_state, generator, dtype, self.device,
+                                    keep_f32=("Conv_3",))
+            self.rec = build_module(
+                TextRecognizer(seq_len=config.rec_max_width // 4), rec_state, generator,
+                dtype, self.device, keep_f32=("ctc_head",))
+            self.rec_len = config.rec_max_width // 4
+        else:
+            raise ValueError(f"OcrConfig.arch must be 'native' or 'easyocr', got {config.arch!r}")
 
     def rec_preprocess(self, crops_f255: torch.Tensor) -> torch.Tensor:
-        """[N,H,W,3] float crops in [0,255] -> recogniser input [N,3,H,W]."""
+        """[N,H,W,3] float crops in [0,255] -> recogniser input: native
+        [N,3,H,W] RGB/255; easyocr [N,1,H,W] grayscale, (x/255 - 0.5)/0.5."""
+        if self.config.arch == "easyocr":
+            gray = (crops_f255[..., 0] * 0.299 + crops_f255[..., 1] * 0.587
+                    + crops_f255[..., 2] * 0.114)
+            return (((gray / 255.0) - 0.5) / 0.5)[:, None]
         return (crops_f255 / 255.0).permute(0, 3, 1, 2)
 
     def decode_ids(self, ids_row) -> str:

@@ -72,7 +72,7 @@ def make_ocr_backend(config: OcrConfig, weights=None, device="cuda"):
         from omniparser_tpu_torch.models.ocr import TorchOCR
         from omniparser_tpu_torch.pipeline import ocr_states_from_field
 
-        det_s, rec_s = ocr_states_from_field(weights) or (None, None)
+        det_s, rec_s = ocr_states_from_field(weights, config) or (None, None)
         return TorchOCR(config, device, det_s, rec_s)
     if config.backend == "easyocr":
         return EasyOCRBackend(config)

@@ -153,7 +153,7 @@ def fused_parse_step(cfg: PipelineConfig, detector: Detector, det_module,
                 ocr_cand_valid, torch.arange(M, dtype=torch.int32, device=dev) + 1,
                 torch.zeros((), dtype=torch.int32, device=dev)).max()
             n_blocks = (int(n_valid) + blk - 1) // blk
-            T = ocr.rec.pos_embed.shape[1]
+            T = ocr.rec_len
             rec_ids = torch.zeros((M, T), dtype=torch.int32, device=dev)
             rec_conf = torch.zeros((M,), dtype=torch.float32, device=dev)
             n_chars = torch.zeros((M,), dtype=torch.int32, device=dev)
@@ -248,27 +248,68 @@ def _sub_tree(flat: Dict, prefix: str) -> Dict:
     return {k[len(p):]: v for k, v in flat.items() if k.startswith(p)}
 
 
+def detector_variant(variant: str, weights: Optional[str]) -> str:
+    """The reference routes any ``icon_detect_v3`` weight path to its
+    YOLOv9-E: such a path selects 'v9e' unless a 'v9*' variant is named."""
+    import pathlib
+
+    if weights and "icon_detect_v3" in pathlib.Path(weights).parts \
+            and not variant.startswith("v9"):
+        return "v9e"
+    return variant
+
+
+def make_detector(dc) -> Detector:
+    """A ``DetectorConfig`` -> its detector: 'v9*' variants select the GELAN
+    family ('v9' alone is 'v9e'), plain letters YOLOv8."""
+    kw = dict(num_classes=dc.num_classes, imgsz=dc.default_imgsz,
+              max_det=dc.max_detections, prefilter=dc.prefilter_topk)
+    if dc.variant.startswith("v9"):
+        from omniparser_tpu_torch.models.yolov9 import YOLOv9Detector
+
+        return YOLOv9Detector(variant=dc.variant[2:] or "e", **kw)
+    return Detector(variant=dc.variant, **kw)
+
+
 def detector_state_from_field(field: Optional[str], detector: Detector):
     """``PipelineConfig.detector_weights`` -> a state_dict for the
     detector's module, or None for the seeded init: 'auto' and ``*.npz``
-    are exports, any other file an ultralytics ``.pt`` or torch state_dict
-    (``weights/convert_yolo.py``)."""
+    are exports (of the YOLOv8 family), any other file an ultralytics
+    ``.pt`` or torch state_dict (``weights/convert_yolo.py``), or for a GELAN
+    detector a yolov9 TorchScript or state dict (``weights/convert_yolov9.py``)."""
+    from omniparser_tpu_torch.models.yolov9 import YOLOv9Detector
     from omniparser_tpu_torch.weights import convert
     from omniparser_tpu_torch.weights.convert_yolo import load_detector_state
+    from omniparser_tpu_torch.weights.convert_yolov9 import load_yolov9_state
 
     if field is None:
         return None
+    gelan = isinstance(detector, YOLOv9Detector)
     if field == "auto" or field.endswith(".npz") or os.path.isdir(field):
+        if gelan:
+            raise ValueError(
+                f"detector_weights={field!r}: there is no exported checkpoint of the GELAN "
+                "family; give a yolov9 TorchScript or state dict, or None for a seeded init")
         return convert.convert_yolov8(_sub_tree(_flat_weights(field, "det_synth"), "det"),
                                       detector.variant, detector.num_classes)
-    return load_detector_state(field, detector)
+    return load_yolov9_state(field, detector) if gelan else load_detector_state(field, detector)
 
 
-def ocr_states_from_field(field: Optional[str]):
+def ocr_states_from_field(field: Optional[str], ocr_config):
     """``PipelineConfig.ocr_weights`` -> (detector, recogniser) state_dicts,
-    or None for the seeded init."""
+    or None for the seeded init.  The 'easyocr' arch has no export: its
+    weights are the config's ``easyocr_*_pth`` files (TorchOCR reads them),
+    so its field must be None, or 'auto' with those files named."""
     from omniparser_tpu_torch.weights import convert
 
+    if ocr_config.arch == "easyocr":
+        named = ocr_config.easyocr_craft_pth or ocr_config.easyocr_rec_pth
+        if field is not None and not (field == "auto" and named):
+            raise ValueError(
+                f"ocr_weights={field!r} with arch='easyocr': there is no exported checkpoint "
+                "of this arch; name craft_mlt_25k.pth / english_g2.pth in "
+                "OcrConfig.easyocr_craft_pth / easyocr_rec_pth, or pass None for a seeded init")
+        return None
     flat = _flat_weights(field, "ocr_en_synth")
     if flat is None:
         return None
@@ -300,19 +341,39 @@ def florence_from_field(field: Optional[str], config, dims, generator, device, s
     return FlorenceCaptioner(config, dims or BASE, state, generator=generator, device=device)
 
 
+def blip2_from_field(field: Optional[str], config, dims, device, seed: int = 0, state=None):
+    """``PipelineConfig.captioner_weights`` with backend 'blip2' -> a
+    Blip2Captioner: from `state` where given, else an HF blip2-opt directory
+    (``*.safetensors``, at ``dims``, default blip2-opt-2.7b), or None for the
+    seeded init.  There is no exported BLIP-2 checkpoint, so 'auto' raises."""
+    from omniparser_tpu_torch.models.blip2 import BLIP2_OPT_2_7B, Blip2Captioner
+
+    dims = dims or BLIP2_OPT_2_7B
+    if state is None and field is not None:
+        if not os.path.isdir(field):
+            raise ValueError(
+                f"captioner_weights={field!r} with backend 'blip2': give an HF blip2-opt "
+                "directory (*.safetensors), or None for a seeded init")
+        return Blip2Captioner.from_checkpoint(field, config, dims, device=device)
+    return Blip2Captioner(config, dims, state, seed=seed, device=device)
+
+
 class SOMPipeline:
     """End-to-end parse: detector, OCR, merge, captioner.
 
     device: where everything runs; the default is the card, and a caller
-    that wants the CPU says device="cpu".  Parts: `detector` (a Detector)
-    with `det_module` (its network), `ocr` (any object with
-    ``recognize(image_rgb, padded, hw) -> (texts, boxes_px)``; a TorchOCR
-    runs on the device) and `captioner`, each built from the config where
-    not given.  Weights: explicit state_dicts (`detector_state`,
-    `ocr_states=(det, rec)`, `captioner_state` with `captioner_dims`), else
-    the config's weight fields: an exported .npz ('auto' raises where it is
-    missing), an ultralytics .pt (detector), an HF Florence-2 directory
-    (captioner), or None for a seeded random init.
+    that wants the CPU says device="cpu".  Parts: `detector` (a Detector:
+    YOLOv8, or a YOLOv9Detector for 'v9*' variants) with `det_module` (its
+    network), `ocr` (any object with ``recognize(image_rgb, padded, hw) ->
+    (texts, boxes_px)``; a TorchOCR, either arch, runs on the device) and
+    `captioner` (Florence-2, fused into the device step, or BLIP-2, which
+    captions after it), each built from the config where not given.
+    Weights: explicit state_dicts (`detector_state`, `ocr_states=(det,
+    rec)`, `captioner_state` with `captioner_dims`), else the config's
+    weight fields: an exported .npz ('auto' raises where it is missing), an
+    ultralytics .pt or yolov9 TorchScript (detector), an HF Florence-2 or
+    blip2-opt directory (captioner), the easyocr .pth files named in
+    OcrConfig, or None for a seeded random init.
     """
 
     def __init__(self, config: PipelineConfig, device="cuda", *, detector=None,
@@ -326,11 +387,7 @@ class SOMPipeline:
 
         dc = config.detector
         if detector is None:
-            if dc.variant.startswith("v9"):
-                raise NotImplementedError("the YOLOv9 family is not ported (ROADMAP A.5)")
-            detector = Detector(variant=dc.variant, num_classes=dc.num_classes,
-                                imgsz=dc.default_imgsz, max_det=dc.max_detections,
-                                prefilter=dc.prefilter_topk)
+            detector = make_detector(dc)
         self.detector = detector
         if det_module is None:
             if detector_state is None:
@@ -342,7 +399,7 @@ class SOMPipeline:
         if ocr is None:
             if config.ocr.backend == "jax":
                 if ocr_states is None:
-                    ocr_states = ocr_states_from_field(config.ocr_weights)
+                    ocr_states = ocr_states_from_field(config.ocr_weights, config.ocr)
                 det_s, rec_s = ocr_states if ocr_states is not None else (None, None)
                 ocr = TorchOCR(config.ocr, self.device, det_s, rec_s, gen)
             else:
@@ -364,8 +421,14 @@ class SOMPipeline:
                 captioner = florence_from_field(config.captioner_weights, config.captioner,
                                                 captioner_dims, gen, self.device,
                                                 state=captioner_state)
+            elif backend == "blip2":
+                captioner = blip2_from_field(config.captioner_weights, config.captioner,
+                                             captioner_dims, self.device, seed,
+                                             state=captioner_state)
+            elif backend == "phi3v":
+                raise NotImplementedError("the Phi-3-V captioner is not ported: ROADMAP A.8")
             else:
-                raise NotImplementedError(f"captioner backend {backend!r} is not ported")
+                raise ValueError(f"unknown captioner backend {backend!r}")
         self.captioner = captioner
         self._florence = captioner if getattr(captioner, "fusable", False) else None
         if self._florence is not None and not config.captioner.split_decode:
@@ -689,8 +752,13 @@ class SOMPipeline:
                 for (_, e), c in zip(missing, caps):
                     e["content"] = c
         elif plain_elems and cfg.use_local_semantics:
-            for e in plain_elems:
-                e["content"] = "icon"
+            if isinstance(self.captioner, NullCaptioner):
+                for e in plain_elems:
+                    e["content"] = "icon"
+            else:  # a captioner outside the fused step (BLIP-2's beam decode)
+                boxes = np.stack([e["bbox"] for e in plain_elems]).astype(np.float32)
+                for e, c in zip(plain_elems, self._caption_boxes(ctx, boxes)):
+                    e["content"] = c
         # use_local_semantics=False: icons keep content None
 
     def _stage_finish(self, ctx: Dict):
@@ -816,7 +884,9 @@ class SOMPipeline:
         return annotated
 
     def _caption_boxes(self, ctx: Dict, boxes_norm: np.ndarray) -> List[str]:
-        """Caption overflow batches (rare: > batch_size content-less icons)."""
+        """Captions of boxes in batches of batch_size crops (K3's caption
+        grid): the fused step's overflow (> batch_size content-less icons),
+        or every content-less icon for a captioner outside the fused step."""
         cfg = self.config.captioner
         bs = cfg.batch_size
         pad_n = -(-len(boxes_norm) // bs) * bs
@@ -848,14 +918,18 @@ class Omniparser:
             # caption_model_name / caption_model_path / BOX_TRESHOLD
             pc = PipelineConfig()
             name = config.get("caption_model_name", "florence2")
-            if name != "florence2":
-                raise NotImplementedError(f"caption model {name!r} is not ported")
+            backends = {"florence2": "florence", "blip2": "blip2"}
+            if name not in backends:
+                raise NotImplementedError(f"caption model {name!r} is not ported"
+                                          + (": ROADMAP A.8" if "phi3" in name else ""))
+            som = config.get("som_model_path")
             config = dataclasses.replace(
                 pc,
                 detector=dataclasses.replace(
-                    pc.detector,
+                    pc.detector, variant=detector_variant(pc.detector.variant, som),
                     box_threshold=config.get("BOX_TRESHOLD", pc.detector.box_threshold)),
-                detector_weights=config.get("som_model_path"),
+                captioner=dataclasses.replace(pc.captioner, backend=backends[name]),
+                detector_weights=som,
                 captioner_weights=config.get("caption_model_path"),
             )
         self.config = config

@@ -121,6 +121,12 @@ def convert_yolov8(flat, variant: str = "n", num_classes: int = 1):
     return convert_variables(flat, _meta(lambda: YOLOv8(variant, num_classes)))
 
 
+def convert_yolov9(flat, variant: str = "e", num_classes: int = 1):
+    from omniparser_tpu_torch.models.yolov9 import GELAN
+
+    return convert_variables(flat, _meta(lambda: GELAN(variant, num_classes)))
+
+
 def convert_text_detector(flat, width: int = 32):
     from omniparser_tpu_torch.models.ocr import TextDetector
 
@@ -134,6 +140,41 @@ def convert_text_recognizer(flat, width: int = 64, layers: int = 2, heads: int =
     seq_len = int(np.asarray(flat["params/pos_embed"]).shape[1])
     return convert_variables(
         flat, _meta(lambda: TextRecognizer(width, layers, heads, seq_len)))
+
+
+def convert_craft(flat):
+    from omniparser_tpu_torch.models.ocr_easy import Craft
+
+    return convert_variables(flat, _meta(Craft))
+
+
+def convert_easyocr_recognizer(flat):
+    """The JAX package's ``TorchLSTM`` pairs (``rnn{i}/fwd``, ``rnn{i}/bwd``)
+    become one ``nn.LSTM(bidirectional=True)`` per block (``rnn{i}/rnn``,
+    suffixes ``_l0`` and ``_l0_reverse``); the layout is torch's on both.
+    The widths are read from the tree (english_g2: 256, 256, 96 classes)."""
+    from omniparser_tpu_torch.models.ocr_easy import VggCtcRecognizer
+
+    dims = dict(output_channel=int(np.shape(flat["params/f6/conv/kernel"])[-1]),
+                hidden=int(np.shape(flat["params/rnn0/fwd/weight_hh"])[1]),
+                num_classes=int(np.shape(flat["params/pred/kernel"])[-1]))
+
+    renamed = {}
+    for path, arr in flat.items():
+        parts = path.split("/")
+        if len(parts) == 4 and parts[2] in ("fwd", "bwd"):
+            suffix = "_l0" if parts[2] == "fwd" else "_l0_reverse"
+            path = "/".join(parts[:2] + ["rnn", parts[3] + suffix])
+        renamed[path] = arr
+    return convert_variables(renamed, _meta(lambda: VggCtcRecognizer(**dims)))
+
+
+def convert_blip2(flat, dims=None):
+    """A JAX Blip2 tree (``params/...``) for ``Blip2(dims)``, default
+    blip2-opt-2.7b."""
+    from omniparser_tpu_torch.models.blip2 import BLIP2_OPT_2_7B, Blip2
+
+    return convert_variables(flat, _meta(lambda: Blip2(dims or BLIP2_OPT_2_7B)))
 
 
 def convert_florence2(flat, dims=None):

@@ -22,8 +22,9 @@ def seeded_init_(module: nn.Module, generator: Optional[torch.Generator]) -> nn.
     if generator is None:
         generator = torch.Generator().manual_seed(0)
 
-    def normal_(p, std):
-        p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float32) * std)
+    def normal_(p, std):  # drawn on the generator's device
+        p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                            device=generator.device) * std)
 
     seen = set()
     for m in module.modules():

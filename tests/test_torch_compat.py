@@ -99,9 +99,18 @@ def test_check_ocr_box_compat_import():
     lambda m: m.get_yolo_model(variant="v9e"),
     lambda m: m.get_yolo_model("weights/icon_detect_v3/model.pt"),
 ], ids=["unknown", "blip2", "phi3_v", "v9", "icon_detect_v3"])
-def test_get_caption_model_processor_rejects_unknown(call):
-    """Unknown models raise as in JAX; the families this port has not
-    reached (YOLOv9, BLIP-2, Phi-3-V) raise naming their ROADMAP item."""
+def test_get_caption_model_processor_rejects_unknown(call, request):
+    """Unknown models raise as in JAX; Phi-3-V, which this port has not
+    reached, raises naming its ROADMAP item.  The YOLOv9 and BLIP-2 routes
+    are ported: they reach their families, which build on the card by
+    default and so stop at the device check on a host without one (their
+    CPU builds are tests/test_torch_yolov9.py's and test_torch_blip2.py's)."""
+    if request.node.callspec.id in ("blip2", "v9", "icon_detect_v3"):
+        if torch.cuda.is_available():
+            pytest.skip("builds a full-width network on the card; chip_smoke.py runs it")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(tcompat)
+        return
     with pytest.raises(NotImplementedError) as err:
         call(tcompat)
     if "llava" not in str(err.value):

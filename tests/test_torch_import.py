@@ -57,9 +57,26 @@ def test_chip_smoke_imports_none_of_them():
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
 
 
+# the model families of the sixth slice
+FAMILY_MODULES = ("models/yolov9.py", "weights/convert_yolov9.py", "models/ocr_easy.py",
+                  "weights/convert_ocr.py", "models/generate.py", "models/blip2.py",
+                  "weights/convert_blip2.py")
+
+
+def test_the_family_modules_are_walked_and_import_none_of_jax():
+    """Every module of the YOLOv9, easyocr and BLIP-2 families is among the
+    modules the subprocess check above imports, and names none of the
+    forbidden packages in an import statement."""
+    names = set(_port_modules())
+    for rel in FAMILY_MODULES:
+        assert "omniparser_tpu_torch." + rel[:-3].replace("/", ".") in names
+        roots = _imported_roots(os.path.join(ROOT, "omniparser_tpu_torch", rel))
+        assert not roots & set(FORBIDDEN) - {"PIL"}, (rel, roots & set(FORBIDDEN))
+
+
 @pytest.mark.parametrize("rel", ["annotate.py", "utils/image.py", "models/tokenizer.py",
                                  "pipeline.py", "serving/http.py", "serving/batcher.py",
-                                 "utils/metrics.py", "models/quant.py"])
+                                 "utils/metrics.py", "models/quant.py", *FAMILY_MODULES])
 def test_optional_host_libraries_are_imported_inside_functions(rel):
     """cv2, PIL and regex may appear only inside function bodies."""
     with open(os.path.join(ROOT, "omniparser_tpu_torch", rel)) as f:
@@ -100,6 +117,24 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         main(["--port", "0"])  # --device defaults to cuda
     with pytest.raises(NotImplementedError, match="A.10"):
         main(["--mesh", "4,2"])
+
+
+def test_family_entry_points_default_to_the_card_and_raise_without_one():
+    import torch
+
+    from omniparser_tpu_torch import compat
+    from omniparser_tpu_torch.config import CaptionerConfig, OcrConfig
+    from omniparser_tpu_torch.models.blip2 import TINY_BLIP2, Blip2Captioner
+    from omniparser_tpu_torch.models.ocr import TorchOCR
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a host without a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compat.get_yolo_model(variant="v9test")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchOCR(OcrConfig(arch="easyocr", rec_height=64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Blip2Captioner(CaptionerConfig(backend="blip2"), TINY_BLIP2)
 
 
 def test_chip_smoke_fails_without_a_card():
