@@ -78,7 +78,22 @@ once without a card.  Phases, one JSON line each:
                   icons, so that icons are beam-captioned, twice and equal,
                   K3's caption grid against its plain version, resident and
                   peak bytes, beam-decode ms; a reduced BLIP-2 written as an
-                  HF safetensors directory and read back equal
+                  HF safetensors directory and read back equal; Phi-3-V
+                  (phi-3-vision-128k-instruct, built on the card by
+                  build_phi3v through get_caption_model_processor('phi3_v'),
+                  greedy, batches of 5, 25 new tokens): get_som_labeled_img
+                  with OCR boxes made from the icons, twice and equal,
+                  launches nms_keep 1, merge_masks 1, crop_resize 1, K3's
+                  caption grid against its plain version, caption ms,
+                  resident and peak bytes; a reduced Phi-3-V written as an
+                  HF directory in two shards and read back equal through
+                  get_caption_model_processor('phi3_v', path) and
+                  Omniparser(dict)
+  eval            eval/screenspot.run_eval through the parse's pipeline with
+                  a MockLLM over rows made from phase parse's screenshot
+                  (the card's machine has no TTF font, so eval/synth_bench's
+                  scenes cannot be rendered there): scores, wall per row,
+                  launches per row
   parity_on_card  the fused step on the card against the same step on the
                   CPU, same weights and image, float32, reduced size; then
                   that card pipeline's parse_batch of phase batch's four
@@ -88,9 +103,12 @@ once without a card.  Phases, one JSON line each:
                   icon drop must fire; every integer field equal); then the
                   families: a 'dualtest' GELAN's detect_graph, the easyocr
                   arch's check_ocr_box (CRAFT @640, 64x480 lines) and
-                  TINY_BLIP2's 5-beam blip2_generate (tokens equal)
+                  TINY_BLIP2's 5-beam blip2_generate (tokens equal); Phi-3-V:
+                  TINY_PHI3V's greedy tokens and a reduced-width
+                  SOMPipeline(backend='phi3v') parse_image (elements equal);
+                  run_eval with a MockLLM (scores and records equal)
 
-Each path (parse, batch, serve, int8, compat, families) runs with the kernels' launch
+Each path (parse, batch, serve, int8, compat, families, eval) runs with the kernels' launch
 counters set to 0 just before it and read just after, and fails if a kernel of
 the path was not launched.  Then the card's nvidia-smi line, one {"kernels": [...]}
 line (``launches``: the parse's counts) and, last, {"ok": true, "device":
@@ -102,6 +120,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import re
@@ -2013,12 +2032,223 @@ def family_blip2(seed: int, pipe, image, launches_by_path):
     torch.cuda.empty_cache()
 
 
+_HF_VIS = "model.vision_embed_tokens.img_processor.vision_model."
+
+
+def hf_phi3v_state_dict(state, dims, rng):
+    """A Phi3V state_dict spelled as an HF Phi-3-vision checkpoint (numpy),
+    with the keys the loader skips or leaves unused: the tower's last layer
+    (random), post_layernorm and the HD separators."""
+    out = {}
+    for k, v in state.items():
+        a = v.float().cpu().numpy()
+        parts = k.split(".")
+        if parts[0] == "embed_tokens":
+            out["model.embed_tokens.weight"] = a
+        elif parts[0] == "final_norm":
+            out["model.norm.weight"] = a
+        elif parts[0] == "lm_head":
+            out["lm_head.weight"] = a
+        elif parts[0] in ("proj_1", "proj_2"):
+            idx = 0 if parts[0] == "proj_1" else 2
+            out[f"model.vision_embed_tokens.img_projection.{idx}.{parts[1]}"] = a
+        elif parts[0].startswith("layers_"):
+            i, mod = parts[0][len("layers_"):], parts[1]
+            group = ("self_attn." if mod in ("qkv_proj", "o_proj") else
+                     "mlp." if mod in ("gate_up_proj", "down_proj") else "")
+            out[f"model.layers.{i}.{group}{mod}.{parts[2]}"] = a
+        elif parts[1] == "class_embedding":
+            out[_HF_VIS + "embeddings.class_embedding"] = a
+        elif parts[1] in ("position_embedding", "patch_embedding"):
+            out[_HF_VIS + f"embeddings.{parts[1]}.weight"] = a
+        elif parts[1] == "pre_layrnorm":
+            out[_HF_VIS + "pre_layrnorm." + parts[2]] = a
+        else:  # vision.layers_{i}.<module>...
+            i, rest = parts[1][len("layers_"):], parts[2:]
+            mod = ".".join(["mlp"] + rest if rest[0] in ("fc1", "fc2") else rest)
+            out[_HF_VIS + f"encoder.layers.{i}.{mod}"] = a
+    w, last = dims.vision_width, dims.vision_layers - 1
+    extra = {f"encoder.layers.{last}.self_attn.q_proj.weight": (w, w),
+             f"encoder.layers.{last}.mlp.fc1.weight": (dims.vision_mlp, w),
+             f"encoder.layers.{last}.layer_norm1.weight": (w,),
+             "post_layernorm.weight": (w,), "post_layernorm.bias": (w,)}
+    for k, shape in extra.items():
+        out[_HF_VIS + k] = rng.standard_normal(shape).astype(np.float32)
+    out["model.vision_embed_tokens.glb_GN"] = np.zeros((1, 1, 4 * w), np.float32)
+    out["model.vision_embed_tokens.sub_GN"] = np.zeros((1, 1, 1, 4 * w), np.float32)
+    return out
+
+
+def phi3v_caption_profile(cap, seed: int):
+    """One caption batch of the Phi-3-V captioner (batch_size seeded 64x64
+    crops, the caption grid's size), its prefill apart from the whole
+    greedy decode: three walls of each, then one more call of each under
+    torch.profiler (device time, kernel launches, idle share).  A decode
+    step is the difference over max_new - 1 steps; its bound is the bytes
+    it must read (the decoder's weights and the LM head, once a step) at
+    3.35 TB/s."""
+    from omniparser_tpu_torch.models.phi3v import phi3v_generate
+
+    dev, n = cap.device, cap.max_new_tokens
+    g = torch.Generator(device=dev).manual_seed(seed)
+    crops = torch.rand((cap.batch_size, 64, 64, 3), generator=g, device=dev) * 255
+    pre, suf = (torch.from_numpy(a).to(dev) for a in (cap.prefix_ids, cap.suffix_ids))
+
+    @torch.no_grad()
+    def prefill():  # phi3v_generate's first token
+        h, _, _ = cap.model.prefill(cap.preprocess(crops), pre, suf, n)
+        return cap.model.logits(h[:, -1]).argmax(-1)
+
+    def generate():
+        return phi3v_generate(cap.model, cap.preprocess(crops), pre, suf, n)
+
+    prof = {}
+    for name, fn in (("prefill", prefill), ("generate", generate)):
+        fn()
+        walls = [sync_wall(fn)[1] for _ in range(3)]
+        prof[name] = profile_pass(lambda: sync_wall(fn)[1], walls)
+    p, gen, steps = prof["prefill"], prof["generate"], n - 1
+    step_wall = (float(np.median(gen["wall_ms"])) - float(np.median(p["wall_ms"]))) / steps
+    step_bytes = sum(t.numel() * t.element_size() for k, t in cap.model.state_dict().items()
+                     if not k.startswith(("vision.", "proj_", "embed_tokens")))
+    step = {"wall_ms": round(step_wall, 3), "bytes_read": step_bytes,
+            "bound_ms": round(step_bytes / 3.35e12 * 1e3, 3), "bound_by": "bytes"}
+    if isinstance(gen["device_idle_share"], float) and isinstance(p["device_idle_share"], float):
+        step_dev = (gen["device_ms"] - p["device_ms"]) / steps
+        step.update(device_ms=round(step_dev, 3),
+                    kernel_launches=round((gen["kernel_launches"] - p["kernel_launches"]) / steps,
+                                          1),
+                    device_idle_share=round(1.0 - step_dev / step_wall, 4))
+    return {"batch": cap.batch_size, "new_tokens": n, "prompt_positions": int(
+        cap.prefix_ids.size + (cap.dims.image_size // cap.dims.patch_size // 2) ** 2
+        + cap.suffix_ids.size), "prefill": p, "generate": gen, "decode_step": step}
+
+
+def family_phi3v(seed: int, pipe, image, launches_by_path):
+    """Phi-3-V (phi-3-vision-128k-instruct widths and depth) seeded on the
+    card through build_phi3v (get_caption_model_processor('phi3_v'), 25
+    greedy tokens in batches of 5): get_som_labeled_img with OCR boxes made
+    from the detector's icons, so that icons are captioned; two calls
+    equal; K3's caption grid against its plain version; a reduced Phi-3-V
+    (full widths, 2+2 layers run) written as an HF directory in two shards
+    and read back through get_caption_model_processor('phi3_v', path) and
+    Omniparser(dict)."""
+    import os
+
+    from omniparser_tpu_torch import compat
+    from omniparser_tpu_torch.models.phi3v import PHI3V_BASE, build_phi3v
+    from omniparser_tpu_torch.ocr import NullOCR
+    from omniparser_tpu_torch.ops import hopper_crop
+    from omniparser_tpu_torch.pipeline import Omniparser
+    from omniparser_tpu_torch.weights.safetensors import write_safetensors
+
+    dev = pipe.device
+    gc.collect()  # an earlier family's captioner may sit in a reference cycle
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cap, build_ms = sync_wall(lambda: compat.get_caption_model_processor("phi3_v", device=dev))
+    resident = torch.cuda.memory_allocated() - before
+    n_params = sum(p.numel() for p in cap.model.parameters())
+    caption_ms = []
+    caption_crops = cap.caption_crops
+
+    def timed_caption_crops(crops, valid):
+        out, ms = sync_wall(lambda: caption_crops(crops, valid))
+        caption_ms.append(round(ms, 2))
+        return out
+
+    cap.caption_crops = timed_caption_crops
+    model = (pipe.detector, pipe.det_module)
+    icons, _, _ = compat.predict_yolo(model, image, 0.05, device=dev,
+                                      iou_threshold=pipe.config.detector.nms_iou_threshold)
+    made_boxes, made_texts = provided_ocr_boxes(icons, *image.shape[:2])
+
+    def call():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return compat.get_som_labeled_img(image, model, BOX_TRESHOLD=0.05,
+                                              ocr_bbox=made_boxes, ocr_text=made_texts,
+                                              caption_model_processor=cap, device=dev)[2]
+
+    with recording(hopper_crop, "crop_resize") as crops:
+        elements_a = call()  # also the warm-up
+    check_crop_calls("phi3v_caption_grid", crops)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    calls_before = cap.generate_calls
+    elements_b, ms = sync_wall(call)
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    path_counts("phi3v_get_som_labeled_img", counts, launches_by_path)
+    cached = [p for p in compat._PIPELINE_CACHE.values() if p.captioner is cap]
+    c = dict(cached[0].last_counts)
+    captions = [e["content"] for e in elements_b if e["source"] == "box_yolo_content_yolo"]
+    emit("families", family="phi3v", path="get_som_labeled_img, phi-3-vision-128k-instruct "
+         f"dims, greedy, batches of {cap.batch_size}, {cap.max_new_tokens} new tokens",
+         params=n_params, build_ms=round(build_ms, 1), resident_bytes=resident,
+         max_memory_allocated=peak, get_som_labeled_img_ms=round(ms, 2),
+         caption_ms=caption_ms, generate_calls=cap.generate_calls - calls_before,
+         caption_ms_per_generated_token=round(
+             caption_ms[-1] / max(1, (cap.generate_calls - calls_before) * cap.max_new_tokens), 3),
+         counts=c, icons_captioned=len(captions), sample=captions[:3], launches=counts,
+         ocr_absorbed=c["ocr_absorbed"], icons_inside_ocr=c["icons_inside_ocr"])
+    if not any(isinstance(t, str) and t.strip() for t in captions):
+        fail("families: Phi-3-V captioned no icon")
+    if elements_a != elements_b:
+        fail("families: two Phi-3-V get_som_labeled_img calls gave different captions")
+    want = {"nms_keep": 1, "merge_masks": 1, "crop_resize": 1, "overlap_matrices": 0}
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"families: the Phi-3-V call launched {counts}, want {want}")
+    emit("families", family="phi3v", caption_profile=phi3v_caption_profile(cap, seed))
+    compat._PIPELINE_CACHE.clear()
+    del cap, cached
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # an HF-spelled directory in two shards from a reduced Phi-3-V (full widths)
+    red = dataclasses.replace(PHI3V_BASE, vision_layers=3, lm_layers=2)
+    small = build_phi3v(red, None, torch.float32, dev, seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phi3v_") as tmp:
+        sd = hf_phi3v_state_dict(small.state_dict(), red, np.random.default_rng(seed))
+        keys = sorted(sd)
+
+        def write():
+            for i, part in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2:])):
+                write_safetensors(os.path.join(tmp, f"model-0000{i + 1}-of-00002.safetensors"),
+                                  {k: sd[k] for k in part})
+
+        _, write_ms = sync_wall(write)
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        loaded, load_ms = sync_wall(
+            lambda: compat.get_caption_model_processor("phi3_v", tmp, device=dev))
+        omni, omni_ms = sync_wall(lambda: Omniparser(
+            {"caption_model_name": "phi3_v", "caption_model_path": tmp}, device=dev,
+            ocr=NullOCR()))
+    want_state = small.state_dict()
+    bad = {name: state_mismatches(got.model.state_dict(), want_state)
+           for name, got in (("get_caption_model_processor", loaded),
+                             ("Omniparser(dict)", omni.pipeline.captioner))}
+    emit("families", family="phi3v", hf_dir={"dims": "phi-3-vision widths, 3 tower layers "
+                                                     "(2 run) + 2 decoder layers",
+                                             "shards": 2, "bytes": nbytes,
+                                             "write_ms": round(write_ms, 1),
+                                             "get_caption_model_processor_ms": round(load_ms, 1),
+                                             "omniparser_dict_ms": round(omni_ms, 1)},
+         loaded_dims_equal=loaded.dims == red, state_equal={k: not v for k, v in bad.items()},
+         differing_keys={k: v[:8] for k, v in bad.items()})
+    if loaded.dims != red or any(bad.values()):
+        fail(f"families: the Phi-3-V directory loaded back differently: {bad}")
+    del small, loaded, omni, sd
+    torch.cuda.empty_cache()
+
+
 def phase_families(seed: int, pipe, image, launches_by_path):
     """The reference's other model families at full width, seeded: each
     path's counters at 0 just before it and read just after."""
     family_yolov9(seed, pipe, image, launches_by_path)
     family_easyocr(seed, pipe, image, launches_by_path)
     family_blip2(seed, pipe, image, launches_by_path)
+    family_phi3v(seed, pipe, image, launches_by_path)
 
 
 def parity_families(seed: int, dev: str = "cuda"):
@@ -2101,6 +2331,138 @@ def parity_families(seed: int, dev: str = "cuda"):
          "card, float32", tokens_equal=same, tokens=toks["cuda"].tolist())
     if not same:
         fail("parity_on_card: TINY_BLIP2 beam search gave other tokens on the card")
+
+
+def parity_phi3v(seed: int, cpu, cfg, image, dev: str = "cuda"):
+    """Phi-3-V on the card (`dev`) against the CPU in float32 (TF32 off,
+    set by the caller), same weights and inputs: TINY_PHI3V's greedy
+    tokens, then a reduced-width SOMPipeline(backend='phi3v') parse_image
+    (the parity pipeline's detector and OCR): every element equal, boxes
+    to PARITY_ATOL['det_boxes'], captions and OCR texts equal."""
+    from omniparser_tpu_torch.config import CaptionerConfig, OcrConfig
+    from omniparser_tpu_torch.models.phi3v import TINY_PHI3V, build_phi3v, phi3v_generate
+    from omniparser_tpu_torch.pipeline import SOMPipeline
+
+    cpu_m = build_phi3v(TINY_PHI3V, None, torch.float32, "cpu", seed)
+    gpu_m = build_phi3v(TINY_PHI3V, cpu_m.state_dict(), torch.float32, dev)
+    rng = np.random.default_rng(seed + 11)
+    px = torch.from_numpy(rng.standard_normal((5, 3, 28, 28)).astype(np.float32))
+    pre, suf = torch.tensor([70, 38, 31]), torch.tensor([20, 14, 15, 42, 30])
+    toks = {name: phi3v_generate(m, px.to(d), pre.to(d), suf.to(d), 25).cpu()
+            for name, m, d in (("cpu", cpu_m, "cpu"), ("cuda", gpu_m, dev))}
+    same = bool(torch.equal(toks["cpu"], toks["cuda"]))
+    emit("parity_on_card", check="TINY_PHI3V phi3v_generate, 5 crops, 25 greedy tokens, CPU "
+         "against card, float32", tokens_equal=same, tokens=toks["cuda"].tolist())
+    if not same:
+        fail("parity_on_card: TINY_PHI3V greedy tokens differ on the card")
+
+    dims = dataclasses.replace(TINY_PHI3V, image_size=56, vision_width=64, vision_heads=4,
+                               vision_mlp=128, vision_layers=3, lm_width=128, lm_heads=4,
+                               lm_mlp=256)
+    pcfg = dataclasses.replace(
+        cfg, captioner=CaptionerConfig(backend="phi3v", dtype="float32", max_new_tokens=10),
+        ocr=dataclasses.replace(cfg.ocr, text_threshold=OcrConfig().text_threshold))
+    states = dict(detector_state=cpu.det_module.state_dict(),
+                  ocr_states=(cpu.ocr.det.state_dict(), cpu.ocr.rec.state_dict()),
+                  captioner_dims=dims)
+    cpu_p = SOMPipeline(pcfg, "cpu", seed=seed, **states)
+    gpu_p = SOMPipeline(pcfg, dev, captioner_state=cpu_p.captioner.model.state_dict(), **states)
+    runs = {}
+    for name, p in (("cpu", cpu_p), ("cuda", gpu_p)):
+        reset_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            runs[name] = p.parse_image(image)[2]
+        runs[name + "_launches"] = all_counts()
+    bad, flips = same_elements(runs["cuda"], runs["cpu"], PARITY_ATOL["det_boxes"])
+    captioned = sum(e["source"] == "box_yolo_content_yolo" for e in runs["cpu"])
+    emit("parity_on_card", check="SOMPipeline(backend='phi3v') parse_image, reduced widths "
+         "(tower 64 wide at 56 px, decoder 128 wide), CPU against card, float32",
+         elements=len(runs["cpu"]), captioned=captioned, differs=bad,
+         caption_texts_differing=flips, generate_calls=gpu_p.captioner.generate_calls,
+         launches=runs["cuda_launches"], sample=[e["content"] for e in runs["cuda"]][:4])
+    if bad or flips:
+        fail(f"parity_on_card: the Phi-3-V parse differs between CPU and card: {bad}, "
+             f"{flips} captions")
+    if not captioned:
+        fail("parity_on_card: the Phi-3-V parse captioned no icon")
+
+
+def eval_rows(image, elements, n: int = 4):
+    """ScreenSpot rows over one screenshot and a MockLLM's answers: the
+    first n parsed elements as targets, each answered with its own id, and
+    one target answered with an id the parse does not have (wrong)."""
+    rows = [{"img_path": image, "instruction": f"click element {i}", "gt_bbox": list(e["bbox"]),
+             "group": e["type"]} for i, e in enumerate(elements[:n])]
+    rows.append({"img_path": image, "instruction": "click past the last element",
+                 "gt_bbox": [0.0, 0.0, 1.0, 1.0], "group": "none"})
+    return rows, [f"Click BBox ID: {i}" for i in range(len(rows) - 1)] + [
+        f"Click BBox ID: {len(elements)}"]
+
+
+def run_eval_records(pipe, image, elements):
+    """screenspot.run_eval of eval_rows through `pipe` -> (scores, the
+    logged records)."""
+    import os
+
+    from omniparser_tpu_torch.eval.llm import MockLLM
+    from omniparser_tpu_torch.eval.screenspot import ScreenSpotModel, run_eval
+
+    rows, answers = eval_rows(image, elements)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        log = os.path.join(tmp, "log.jsonl")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            scores = run_eval(ScreenSpotModel(pipe, MockLLM(answers)), rows, log_path=log)
+        with open(log) as f:
+            return scores, [json.loads(line) for line in f]
+
+
+def parity_eval(cpu, gpu, image):
+    """screenspot.run_eval with a MockLLM over the parity screenshot on the
+    CPU and on the card (float32, TF32 off): the same scores, and row for
+    row the same correctness and predicted point (to PARITY_ATOL['det_boxes'])."""
+    _, _, elements = cpu.parse_image(image)
+    out = {name: run_eval_records(p, image, elements) for name, p in (("cpu", cpu),
+                                                                      ("cuda", gpu))}
+    (s_cpu, r_cpu), (s_gpu, r_gpu) = out["cpu"], out["cuda"]
+    diff = max((max(abs(a - b) for a, b in zip(x["pred"], y["pred"]))
+                for x, y in zip(r_cpu, r_gpu) if x["pred"] and y["pred"]), default=0.0)
+    same = (s_cpu == s_gpu and [r["correctness"] for r in r_cpu] == [r["correctness"] for r in r_gpu]
+            and [r["pred"] is None for r in r_cpu] == [r["pred"] is None for r in r_gpu])
+    emit("parity_on_card", check="screenspot.run_eval with a MockLLM, CPU against card, "
+         "float32", rows=len(r_cpu), scores=s_gpu, same=same, pred_max_abs_diff=diff)
+    if not same or not diff <= PARITY_ATOL["det_boxes"]:
+        fail(f"parity_on_card: run_eval differs between CPU and card: {s_cpu} / {s_gpu}, {diff}")
+
+
+def phase_eval(pipe, image, launches_by_path):
+    """The eval harnesses on the card: screenspot.run_eval (a MockLLM, rows
+    made from the parse's own elements) through the parse's pipeline.  The
+    card's machine has no TTF face (no /usr/share/fonts, no matplotlib), so
+    eval/synth_bench's scenes cannot be rendered there; this phase runs the
+    same loop (parse, pseudo-HTML prompt, Click BBox ID, centroid scoring)
+    over phase parse's screenshot instead."""
+    from omniparser_tpu_torch.eval.screenspot import reformat_messages
+
+    _, _, elements = pipe.parse_image(image)
+    reset_counts()
+    (scores, records), ms = sync_wall(lambda: run_eval_records(pipe, image, elements))
+    counts = all_counts()
+    path_counts("eval_run_eval", counts, launches_by_path)
+    n = len(records)
+    want = (n - 1) / n
+    emit("eval", path="screenspot.run_eval, MockLLM, rows from phase parse's screenshot, "
+         "one parse a row", rows=n, scores=scores, wall_ms=round(ms, 2),
+         wall_ms_per_row=round(ms / n, 2), launches=counts,
+         launches_per_row={k: v / n for k, v in counts.items()},
+         prompt_lines=len(reformat_messages(elements).splitlines()),
+         note="the scores are fixed by the rows (each target answered with its own id but "
+              "the last); they measure the loop, not the parse, on seeded weights")
+    if scores["overall"] != want or [r["correctness"] for r in records][-1] != "wrong":
+        fail(f"eval: run_eval scored {scores['overall']}, want {want}")
+    if counts["nms_keep"] != n or counts["merge_masks"] != n:
+        fail(f"eval: {n} rows launched {counts}")
 
 
 # tests/test_quant.py's bounds on the int8 logits, over the float logits' std
@@ -2338,6 +2700,8 @@ def phase_parity(seed: int):
     del wit
     # the reference's two-call API with provided OCR boxes (ROADMAP C.10)
     parity_compat(cpu, gpu, image)
+    parity_phi3v(seed, cpu, cfg, image)
+    parity_eval(cpu, gpu, image)
     del cpu, gpu
     torch.cuda.empty_cache()
     parity_families(seed)
@@ -2362,6 +2726,7 @@ def main() -> None:
     phase_int8(pipe, image, launches_by_path)
     phase_compat(args.seed, pipe, image, pipe.config, launches_by_path)
     phase_families(args.seed, pipe, image, launches_by_path)
+    phase_eval(pipe, image, launches_by_path)
     emit("launches", by_path=launches_by_path)
     del pipe, single
     torch.cuda.empty_cache()

@@ -18,9 +18,10 @@ site ports with an import swap:
 
 A model is a ``(Detector, module)`` pair (a ``YOLOv9Detector`` is a
 ``Detector``).  Every function that computes on a device takes ``device=``
-(default the card); a model handed to one must be on that device.  The
-Phi-3-V route is not ported and raises ``NotImplementedError`` naming
-ROADMAP A.8.
+(default the card); a model handed to one must be on that device.  Unlike
+the JAX package's, ``get_caption_model_processor`` loads a 'blip2' or
+'phi3_v' checkpoint from the path it is given (the JAX package seeds those
+whatever the path).
 """
 
 from __future__ import annotations
@@ -258,7 +259,10 @@ def get_caption_model_processor(model_name: str = "florence2",
     Florence-2 from an HF checkpoint directory, or a seeded florence-2-base
     without a path; 'blip2' (the reference's beam settings: 5 beams, 100
     new tokens) from an HF blip2-opt-2.7b directory
-    (``weights/convert_blip2.py``), or seeded at full width without one."""
+    (``weights/convert_blip2.py``), or seeded at full width without one;
+    'phi3_v' (batches of 5, greedy, 25 new tokens) from an HF
+    Phi-3-vision directory (``weights/convert_phi3v.py``), or seeded at
+    full width without one."""
     from omniparser_tpu_torch.models.florence2 import FlorenceCaptioner
 
     if model_name == "blip2":
@@ -269,7 +273,12 @@ def get_caption_model_processor(model_name: str = "florence2",
             return Blip2Captioner.from_checkpoint(model_name_or_path, cfg, device=device)
         return Blip2Captioner(cfg, device=device)
     if "phi3" in model_name:
-        raise NotImplementedError("the Phi-3-V captioner is not ported: ROADMAP A.8")
+        from omniparser_tpu_torch.models.phi3v import Phi3VCaptioner
+
+        cfg = CaptionerConfig(model_name="phi3_v", backend="phi3v", max_new_tokens=25)
+        if model_name_or_path:
+            return Phi3VCaptioner.from_checkpoint(model_name_or_path, cfg, device=device)
+        return Phi3VCaptioner(cfg, device=device)
     if model_name != "florence2":
         raise NotImplementedError(
             f"caption model {model_name!r} not implemented (florence2, blip2, phi3_v)")

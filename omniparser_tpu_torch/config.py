@@ -42,8 +42,8 @@ class CaptionerConfig:
     decode of 20 new tokens."""
 
     model_name: str = "florence2"
-    # 'florence' | 'blip2' (beam search, not fused into the device step) |
-    # 'null'; 'phi3v' is not ported (ROADMAP A.8)
+    # 'florence' | 'blip2' (beam search) | 'phi3v' (greedy, batches of 5) |
+    # 'null'; blip2 and phi3v caption after the fused device step
     backend: str = "florence"
     crop_size: int = 64
     batch_size: int = 128

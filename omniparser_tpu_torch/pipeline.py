@@ -358,6 +358,26 @@ def blip2_from_field(field: Optional[str], config, dims, device, seed: int = 0, 
     return Blip2Captioner(config, dims, state, seed=seed, device=device)
 
 
+def phi3v_from_field(field: Optional[str], config, dims, device, seed: int = 0, state=None):
+    """``PipelineConfig.captioner_weights`` with backend 'phi3v' -> a
+    Phi3VCaptioner: from `state` where given, else an HF Phi-3-vision
+    directory (``*.safetensors`` shards, at ``dims``, default the published
+    phi-3-vision-128k-instruct dims; a directory's depth is its own), or
+    None for the seeded init.  There is no exported Phi-3-V checkpoint, so
+    'auto' raises."""
+    from omniparser_tpu_torch.models.phi3v import PHI3V_BASE, Phi3VCaptioner
+
+    if state is None and field is not None:
+        if not (os.path.isdir(field)
+                and any(f.endswith(".safetensors") for f in os.listdir(field))):
+            raise ValueError(
+                f"captioner_weights={field!r} with backend 'phi3v': give an HF "
+                "microsoft/Phi-3-vision-128k-instruct directory (*.safetensors shards), "
+                "or None for a seeded init")
+        return Phi3VCaptioner.from_checkpoint(field, config, dims, device=device)
+    return Phi3VCaptioner(config, dims or PHI3V_BASE, state, seed=seed, device=device)
+
+
 class SOMPipeline:
     """End-to-end parse: detector, OCR, merge, captioner.
 
@@ -366,14 +386,15 @@ class SOMPipeline:
     YOLOv8, or a YOLOv9Detector for 'v9*' variants) with `det_module` (its
     network), `ocr` (any object with ``recognize(image_rgb, padded, hw) ->
     (texts, boxes_px)``; a TorchOCR, either arch, runs on the device) and
-    `captioner` (Florence-2, fused into the device step, or BLIP-2, which
-    captions after it), each built from the config where not given.
+    `captioner` (Florence-2, fused into the device step, or BLIP-2 or
+    Phi-3-V, which caption after it), each built from the config where not
+    given.
     Weights: explicit state_dicts (`detector_state`, `ocr_states=(det,
     rec)`, `captioner_state` with `captioner_dims`), else the config's
     weight fields: an exported .npz ('auto' raises where it is missing), an
-    ultralytics .pt or yolov9 TorchScript (detector), an HF Florence-2 or
-    blip2-opt directory (captioner), the easyocr .pth files named in
-    OcrConfig, or None for a seeded random init.
+    ultralytics .pt or yolov9 TorchScript (detector), an HF Florence-2,
+    blip2-opt or Phi-3-vision directory (captioner), the easyocr .pth files
+    named in OcrConfig, or None for a seeded random init.
     """
 
     def __init__(self, config: PipelineConfig, device="cuda", *, detector=None,
@@ -426,7 +447,9 @@ class SOMPipeline:
                                              captioner_dims, self.device, seed,
                                              state=captioner_state)
             elif backend == "phi3v":
-                raise NotImplementedError("the Phi-3-V captioner is not ported: ROADMAP A.8")
+                captioner = phi3v_from_field(config.captioner_weights, config.captioner,
+                                             captioner_dims, self.device, seed,
+                                             state=captioner_state)
             else:
                 raise ValueError(f"unknown captioner backend {backend!r}")
         self.captioner = captioner
@@ -918,10 +941,9 @@ class Omniparser:
             # caption_model_name / caption_model_path / BOX_TRESHOLD
             pc = PipelineConfig()
             name = config.get("caption_model_name", "florence2")
-            backends = {"florence2": "florence", "blip2": "blip2"}
+            backends = {"florence2": "florence", "blip2": "blip2", "phi3_v": "phi3v"}
             if name not in backends:
-                raise NotImplementedError(f"caption model {name!r} is not ported"
-                                          + (": ROADMAP A.8" if "phi3" in name else ""))
+                raise NotImplementedError(f"caption model {name!r} is not ported")
             som = config.get("som_model_path")
             config = dataclasses.replace(
                 pc,

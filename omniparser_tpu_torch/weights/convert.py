@@ -185,3 +185,13 @@ def convert_florence2(flat, dims=None):
 
     quant = any(k.endswith("/lm_head_kernel") for k in flat)
     return convert_variables(flat, _meta(lambda: Florence2(dims or BASE, quant)))
+
+
+def convert_phi3v(flat, dims=None):
+    """A JAX Phi3V tree (``params/...``) for ``Phi3V(dims)``, default the
+    phi-3-vision-128k-instruct dims.  Its tower holds the layers that run
+    (``Phi3VDims.vision_layers_run``); a later layer's leaves are left-over
+    keys."""
+    from omniparser_tpu_torch.models.phi3v import PHI3V_BASE, Phi3V
+
+    return convert_variables(flat, _meta(lambda: Phi3V(dims or PHI3V_BASE)))

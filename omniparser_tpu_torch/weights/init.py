@@ -9,7 +9,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_NORMS = (nn.BatchNorm2d, nn.LayerNorm)
+_NORMS = (nn.BatchNorm2d, nn.LayerNorm, nn.RMSNorm)
 
 
 @torch.no_grad()
@@ -31,6 +31,7 @@ def seeded_init_(module: nn.Module, generator: Optional[torch.Generator]) -> nn.
         if isinstance(m, _NORMS):
             if m.weight is not None:
                 m.weight.fill_(1.0)
+            if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
             if isinstance(m, nn.BatchNorm2d):
                 m.running_mean.zero_()

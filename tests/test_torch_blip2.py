@@ -364,8 +364,9 @@ def test_convert_blip2_on_a_genuine_hf_model(blip, tmp_path):
 
 def test_blip2_routes(monkeypatch):
     """backend='blip2' and get_caption_model_processor('blip2') build a
-    Blip2Captioner (the reference's 5 beams, 100 new tokens); Phi-3-V
-    still raises, naming ROADMAP A.8."""
+    Blip2Captioner (the reference's 5 beams, 100 new tokens); the Phi-3-V
+    routes reach Phi3VCaptioner, which stops at the device check without a
+    card (its CPU builds are tests/test_torch_phi3v.py's)."""
     from omniparser_tpu_torch import compat
     from omniparser_tpu_torch.config import CaptionerConfig, OcrConfig, PipelineConfig
     from omniparser_tpu_torch.pipeline import SOMPipeline
@@ -384,8 +385,16 @@ def test_blip2_routes(monkeypatch):
     assert seen[-1][0] == TDIMS and p.captioner.max_new_tokens == 20
     with pytest.raises(ValueError, match="blip2-opt"):
         SOMPipeline(dataclasses.replace(cfg, captioner_weights="auto"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        compat.get_caption_model_processor("phi3_v", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        SOMPipeline(dataclasses.replace(cfg, captioner=CaptionerConfig(backend="phi3v")),
+    from omniparser_tpu_torch.models import phi3v
+
+    if not torch.cuda.is_available():  # with a card this would build full width there
+        with pytest.raises(RuntimeError, match="no CUDA device") as err:
+            compat.get_caption_model_processor("phi3_v")
+        assert any(e.frame.code.raw is phi3v.Phi3VCaptioner.__init__.__code__
+                   for e in err.traceback)
+    monkeypatch.setattr(phi3v, "build_phi3v", lambda dims, state, dtype, device, seed=0:
+                        seen.append((dims, state, dtype, str(device))) or torch.nn.Linear(1, 1))
+    p = SOMPipeline(dataclasses.replace(cfg, captioner=CaptionerConfig(backend="phi3v")),
                     device="cpu")
+    assert isinstance(p.captioner, phi3v.Phi3VCaptioner) and p._florence is None
+    assert seen[-1][0] == phi3v.PHI3V_BASE and p.captioner.max_new_tokens == 20

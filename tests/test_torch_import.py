@@ -61,22 +61,31 @@ def test_chip_smoke_imports_none_of_them():
 FAMILY_MODULES = ("models/yolov9.py", "weights/convert_yolov9.py", "models/ocr_easy.py",
                   "weights/convert_ocr.py", "models/generate.py", "models/blip2.py",
                   "weights/convert_blip2.py")
+# the seventh slice: Phi-3-V, the renderer copies and the eval harnesses
+SLICE7_MODULES = ("models/phi3v.py", "weights/convert_phi3v.py", "train/synth_text.py",
+                  "train/synth_gui.py", "train/train_captioner.py", "eval/llm.py",
+                  "eval/screenspot.py", "eval/synth_bench.py", "eval/real_bench.py",
+                  "eval/__main__.py")
 
 
 def test_the_family_modules_are_walked_and_import_none_of_jax():
-    """Every module of the YOLOv9, easyocr and BLIP-2 families is among the
-    modules the subprocess check above imports, and names none of the
-    forbidden packages in an import statement."""
+    """Every module of the YOLOv9, easyocr, BLIP-2 and Phi-3-V families and
+    of the eval harnesses is among the modules the subprocess check above
+    imports, and names none of the forbidden packages in an import
+    statement."""
     names = set(_port_modules())
-    for rel in FAMILY_MODULES:
+    host = {"PIL", "cv2", "regex"}  # the renderers draw with PIL and blur with cv2
+    for rel in FAMILY_MODULES + SLICE7_MODULES:
         assert "omniparser_tpu_torch." + rel[:-3].replace("/", ".") in names
         roots = _imported_roots(os.path.join(ROOT, "omniparser_tpu_torch", rel))
-        assert not roots & set(FORBIDDEN) - {"PIL"}, (rel, roots & set(FORBIDDEN))
+        allowed = {"PIL"} if rel in FAMILY_MODULES else host
+        assert not roots & set(FORBIDDEN) - allowed, (rel, roots & set(FORBIDDEN))
 
 
 @pytest.mark.parametrize("rel", ["annotate.py", "utils/image.py", "models/tokenizer.py",
                                  "pipeline.py", "serving/http.py", "serving/batcher.py",
-                                 "utils/metrics.py", "models/quant.py", *FAMILY_MODULES])
+                                 "utils/metrics.py", "models/quant.py", *FAMILY_MODULES,
+                                 *SLICE7_MODULES])
 def test_optional_host_libraries_are_imported_inside_functions(rel):
     """cv2, PIL and regex may appear only inside function bodies."""
     with open(os.path.join(ROOT, "omniparser_tpu_torch", rel)) as f:
@@ -135,6 +144,31 @@ def test_family_entry_points_default_to_the_card_and_raise_without_one():
         TorchOCR(OcrConfig(arch="easyocr", rec_height=64))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Blip2Captioner(CaptionerConfig(backend="blip2"), TINY_BLIP2)
+
+
+def test_phi3v_and_eval_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
+    import torch
+
+    from omniparser_tpu_torch import compat
+    from omniparser_tpu_torch.config import CaptionerConfig
+    from omniparser_tpu_torch.eval import real_bench, synth_bench
+    from omniparser_tpu_torch.eval.__main__ import main
+    from omniparser_tpu_torch.models.phi3v import TINY_PHI3V, Phi3VCaptioner
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a host without a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Phi3VCaptioner(CaptionerConfig(backend="phi3v"), TINY_PHI3V)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compat.get_caption_model_processor("phi3_v")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synth_bench.run(n_scenes=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        real_bench.run(imgs_dir=str(tmp_path))  # an empty directory: no rows
+    with pytest.raises(FileNotFoundError, match="no_such_dir"):
+        real_bench.run(imgs_dir=str(tmp_path / "no_such_dir"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--dataset", "/dev/null", "--mock"])  # --device defaults to cuda
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -226,3 +226,41 @@ def test_overflow_warnings_and_null_backends(rng):
     assert elements and all(e["content"] == "icon" for e in elements)
     assert all(e["source"] == "box_yolo_content_yolo" for e in elements)
     assert set(labels) == {str(i) for i in range(len(elements))}
+
+
+class _OneParsePerImage:
+    """A pipeline whose parse_image runs once per image object: the
+    benchmark parses a scene again for every row of it."""
+
+    def __init__(self, pipeline):
+        self.pipeline, self.seen = pipeline, {}
+
+    def parse_image(self, image_rgb):
+        if id(image_rgb) not in self.seen:  # the image is kept, so its id stays its own
+            self.seen[id(image_rgb)] = (image_rgb, self.pipeline.parse_image(image_rgb))
+        return self.seen[id(image_rgb)][1]
+
+
+def test_synth_bench_run_matches_jax(pipelines, tmp_path):
+    """eval/synth_bench.run over one held-out 640 scene through both
+    pipelines: the same scores and, row for row, the same instruction,
+    correctness and predicted point (within a pixel)."""
+    import json
+
+    from omniparser_tpu.eval import synth_bench as jsb
+    from omniparser_tpu_torch.eval import synth_bench as tsb
+
+    jp, tp = pipelines
+    got = tsb.run(n_scenes=1, seed=777555, pipeline=_OneParsePerImage(tp),
+                  log_path=str(tmp_path / "t.jsonl"))
+    want = jsb.run(n_scenes=1, seed=777555, pipeline=_OneParsePerImage(jp),
+                   log_path=str(tmp_path / "j.jsonl"))
+    assert got == want and got["n"] >= 5
+    rows = [[json.loads(line) for line in open(tmp_path / f)] for f in ("t.jsonl", "j.jsonl")]
+    assert len(rows[0]) == len(rows[1]) == got["n"]
+    for a, b in zip(*rows):
+        assert (a["instruction"], a["correctness"]) == (b["instruction"], b["correctness"])
+        assert (a["pred"] is None) == (b["pred"] is None)
+        if a["pred"] is not None:
+            np.testing.assert_allclose(a["pred"], b["pred"], rtol=0, atol=1.0 / 640)
+    assert sum(r["pred"] is not None for r in rows[0]) >= 3, "too few rows grounded"
