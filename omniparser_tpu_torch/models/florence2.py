@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from omniparser_tpu_torch.config import CaptionerConfig
 from omniparser_tpu_torch.models import quant as quant_ops
 from omniparser_tpu_torch.models.ocr import LN_EPS, layer_norm_f32
+from omniparser_tpu_torch.utils.device import float32_region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -418,7 +419,8 @@ class Florence2LM(nn.Module):
             # per-vocabulary-row scale, plus the bias
             y = quant_ops.product_f32(h.to(self._dtype()), head)
             return y * self.lm_head_scale + self.final_logits_bias.float()
-        return h.float() @ head + self.final_logits_bias.float()
+        with float32_region(h):
+            return h.float() @ head + self.final_logits_bias.float()
 
     def decode_step(self, token_ids, step: int, enc_mask, caches, cross_kvs, head=None):
         """One greedy step: token_ids [B,1] at position `step`; caches are

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from omniparser_tpu_torch.config import OcrConfig
+from omniparser_tpu_torch.models.norm import FlaxBatchNorm2d
 from omniparser_tpu_torch.ops.components import (
     candidate_boxes_np,
     device_components,
@@ -33,6 +34,7 @@ from omniparser_tpu_torch.ops.preprocess import (
     pad_to_bucket,
     pick_bucket_2d,
 )
+from omniparser_tpu_torch.utils.device import float32_region
 
 # charset: CTC blank at index 0
 CHARSET = (
@@ -68,7 +70,7 @@ class _ConvBlock(nn.Module):
         super().__init__()
         self.stride = stride
         self.Conv_0 = nn.Conv2d(cin, features, 3, stride, 0, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
+        self.BatchNorm_0 = FlaxBatchNorm2d(features, eps=1e-5)
 
     def forward(self, x):
         y = self.Conv_0(same_pad(x, 3, self.stride))
@@ -113,7 +115,8 @@ class TextDetector(nn.Module):
         feat = blk(8)(feat)
         # head at 1/2: upsample fused features, one refining conv
         feat = blk(9)(_up_to(feat, c1))
-        return torch.sigmoid(self.Conv_3(feat.float()))
+        with float32_region(feat):
+            return torch.sigmoid(self.Conv_3(feat.float()))
 
 
 class _SelfAttention(nn.Module):
@@ -178,7 +181,8 @@ class TextRecognizer(nn.Module):
             m = getattr(self, f"mlp_in_{i}")(m)
             m = F.gelu(m, approximate="tanh")
             h = h + getattr(self, f"mlp_out_{i}")(m)
-        return self.ctc_head(layer_norm_f32(h, self.ln_f))
+        with float32_region(h):
+            return self.ctc_head(layer_norm_f32(h, self.ln_f))
 
 
 def ctc_device_stats(logits: torch.Tensor):

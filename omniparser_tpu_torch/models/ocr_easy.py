@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from omniparser_tpu_torch.models.norm import FlaxBatchNorm2d
+
 # easyocr's english charset (number + symbol + en_char, the english_g2
 # order); the CTC blank is index 0
 EASYOCR_EN_CHARSET = (
@@ -39,7 +41,7 @@ class _ConvBN(nn.Module):
                  relu: bool = True, use_bias: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, 1, padding, dilation, bias=use_bias)
-        self.bn = nn.BatchNorm2d(features, eps=1e-5) if use_bn else None
+        self.bn = FlaxBatchNorm2d(features, eps=1e-5) if use_bn else None
         self.relu = relu
 
     def forward(self, x):

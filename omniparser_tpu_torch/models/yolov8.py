@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from omniparser_tpu_torch.models.norm import FlaxBatchNorm2d
 from omniparser_tpu_torch.ops.nms import nms_fixed_shape
 from omniparser_tpu_torch.ops.preprocess import boxes_letterboxed_to_image, letterbox
 
@@ -48,7 +49,7 @@ class ConvBNAct(nn.Module):
     def __init__(self, cin: int, features: int, kernel: int = 1, stride: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, stride, kernel // 2, bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=1e-3, momentum=0.03)
+        self.bn = FlaxBatchNorm2d(features, eps=1e-3, flax_momentum=0.97)
 
     def forward(self, x):
         y = self.bn(self.conv(x).float())

@@ -6,10 +6,10 @@ Everything is seeded: the same generator state gives the same pixels as
 the JAX package's renderer on the same machine (the font set is globbed
 from ``/usr/share/fonts`` and matplotlib's bundled faces, so two machines
 with other fonts render other pixels).  A machine with no TTF face
-imports this module but raises at the first render.  Not copied yet: the
-recogniser-training crop path (``render_line_buffers``,
-``crops_from_buffers``, ``render_lines_to_crops``) and ``shrink_map``,
-which serve the trainers (ROADMAP A.11).
+imports this module but raises at the first render.  The trainers' half
+(``render_line_buffers``, ``crops_from_buffers``, ``render_lines_to_crops``,
+``shrink_map``) follows the renderers; ``crops_from_buffers`` runs the
+inference crop-gather (K3's line grid on the card).
 """
 
 from __future__ import annotations
@@ -389,6 +389,65 @@ def render_line(
     return arr, text
 
 
+def render_line_buffers(
+    rng: np.random.Generator,
+    n: int,
+    max_label_len: int = 56,
+    buf_hw: Tuple[int, int] = (64, 1536),
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List[str]]:
+    """The host half of the recogniser's data path: n natural-size line
+    renders packed top-left into fixed buffers.  Returns (bufs [n,bh,bw,3]
+    uint8, hws [n,2] int32, labels [n,L] int32, texts)."""
+    bh, bw = buf_hw
+    bufs = np.zeros((n, bh, bw, 3), np.uint8)
+    hws = np.zeros((n, 2), np.int32)
+    labels = np.zeros((n, max_label_len), np.int32)
+    texts: List[str] = []
+    for i in range(n):
+        while True:
+            img, text = render_line(rng)
+            h, w = img.shape[:2]
+            if h <= bh and w <= bw:
+                break
+        bufs[i, :h, :w] = img
+        hws[i] = (h, w)
+        labels[i] = encode_text(text, max_label_len)
+        texts.append(text)
+    return bufs, hws, labels, texts
+
+
+def crops_from_buffers(bufs, hws, out_hw: Tuple[int, int] = (32, 320),
+                       device="cuda") -> np.ndarray:
+    """Run buffered renders through the inference path's line-crop
+    geometry (``ops/preprocess.crop_lines_batch``): one crop a buffer, its
+    box the whole natural-size render.  On the card each is one launch of
+    K3's line grid (``csrc/crop.cu``); on the CPU its plain version.
+    Returns [n, out_h, out_w, 3] uint8 (values truncated, as the JAX
+    package's ``astype``)."""
+    import torch
+
+    from omniparser_tpu_torch.ops.preprocess import crop_lines_batch
+    from omniparser_tpu_torch.train.data import crop_each
+
+    one_box = torch.tensor([[0.0, 0.0, 1.0, 1.0]], dtype=torch.float32)
+    return crop_each(bufs, lambda buf, i: crop_lines_batch(
+        buf, (int(hws[i][0]), int(hws[i][1])), one_box.to(buf.device), out_hw), device)
+
+
+def render_lines_to_crops(
+    rng: np.random.Generator,
+    n: int,
+    out_hw: Tuple[int, int] = (32, 320),
+    max_label_len: int = 32,
+    buf_hw: Tuple[int, int] = (64, 1024),
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    """n rendered lines -> (crops [n,H,W,3] uint8, labels [n,L] int32,
+    texts), the crops through the inference-path geometry."""
+    bufs, hws, labels, texts = render_line_buffers(rng, n, max_label_len, buf_hw)
+    return crops_from_buffers(bufs, hws, out_hw, device), labels, texts
+
+
 # --------------------------- screenshot rendering ------------------------ #
 
 
@@ -470,3 +529,33 @@ def render_screenshot(
         arr = arr + rng.normal(0.0, rng.uniform(1.0, 4.0), arr.shape)
     arr = np.clip(arr, 0, 255).astype(np.uint8)
     return np.repeat(arr[:, :, None], 3, axis=2), boxes, texts
+
+
+def shrink_map(
+    boxes: Sequence[Sequence[int]], size: int, factor: int = 2, shrink: float = 0.4
+) -> np.ndarray:
+    """DBNet-style shrink-map target at 1/factor scale (factor matches
+    TextDetector.out_scale): each text rect is shrunk by the offset
+    d = area*(1-r^2)/perimeter (r = 0.4), capped at 25% of the short side
+    (the uncapped DBNet offset erases 8-14 px GUI text lines), before
+    painting, so that adjacent lines stay apart in the map."""
+    s = size // factor
+    out = np.zeros((s, s), np.float32)
+    for x1, y1, x2, y2 in boxes:
+        w, h = x2 - x1, y2 - y1
+        if w <= 0 or h <= 0:
+            continue
+        d = min(w * h * (1 - shrink**2) / (2 * (w + h)), 0.25 * min(w, h))
+        sx1 = int(round((x1 + d) / factor))
+        sy1 = int(round((y1 + d) / factor))
+        sx2 = int(round((x2 - d) / factor))
+        sy2 = int(round((y2 - d) / factor))
+        # never shrink to nothing: keep at least the centre cell
+        if sx2 <= sx1:
+            cx = (x1 + x2) / 2 / factor
+            sx1, sx2 = int(cx), int(cx) + 1
+        if sy2 <= sy1:
+            cy = (y1 + y2) / 2 / factor
+            sy1, sy2 = int(cy), int(cy) + 1
+        out[max(sy1, 0) : min(sy2, s), max(sx1, 0) : min(sx2, s)] = 1.0
+    return out

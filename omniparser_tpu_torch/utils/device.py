@@ -12,3 +12,11 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device={str(device)!r} but no CUDA device is available; "
                            "pass device='cpu' to run on the CPU")
     return dev
+
+
+def float32_region(t: torch.Tensor):
+    """A context in which autocast is off on `t`'s device: the float32
+    heads (the JAX modules' ``dtype=float32`` layers) stay float32 when a
+    trainer runs the network under bfloat16 autocast.  Without autocast it
+    changes nothing."""
+    return torch.autocast(t.device.type, enabled=False)

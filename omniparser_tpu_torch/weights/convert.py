@@ -110,6 +110,62 @@ def convert_variables(flat: Mapping[str, np.ndarray], module: nn.Module
     return out
 
 
+_ATTN_PROJ = ("query", "key", "value", "out")
+
+
+def unconvert_state(state_dict: Mapping[str, torch.Tensor], module: nn.Module
+                    ) -> Dict[str, np.ndarray]:
+    """The inverse of ``convert_variables``: `module`'s state_dict (or
+    `state_dict`, keyed as the module's) -> flat Flax variables, float32
+    numpy.  ``convert_variables(unconvert_state(s, m), m)`` gives `s` back
+    exactly.  BatchNorm running statistics go to ``batch_stats``, every
+    parameter to ``params``; ``num_batches_tracked`` has no Flax
+    counterpart and is dropped.  Modules with int8 weights or an LSTM have
+    no inverse here."""
+    import torch.nn as tnn
+
+    out: Dict[str, np.ndarray] = {}
+    mods = dict(module.named_modules())
+    for key, value in state_dict.items():
+        owner, _, leaf = key.rpartition(".")
+        m = mods[owner]
+        if leaf == "num_batches_tracked":
+            continue
+        if value.dtype == torch.int8 or isinstance(m, tnn.LSTM):
+            raise NotImplementedError(f"{key}: no Flax inverse for {type(m).__name__}")
+        arr = value.detach().float().cpu().numpy()
+        path = owner.replace(".", "/")
+        parent = mods[owner.rpartition(".")[0]] if "." in owner else module
+        heads = getattr(parent, "heads", None)
+        mha = heads is not None and owner.rpartition(".")[2] in _ATTN_PROJ
+        coll = "params"
+        if isinstance(m, tnn.modules.batchnorm._BatchNorm):
+            name = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                    "running_var": "var"}[leaf]
+            coll = "batch_stats" if leaf.startswith("running_") else "params"
+        elif isinstance(m, tnn.LayerNorm):
+            name = {"weight": "scale", "bias": "bias"}[leaf]
+        elif isinstance(m, tnn.Embedding):
+            name = "embedding"
+        elif isinstance(m, tnn.Conv2d) and leaf == "weight":
+            name, arr = "kernel", arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif isinstance(m, tnn.Linear) and leaf == "weight":
+            name = "kernel"
+            if mha and owner.endswith("out"):  # [out, heads*hd] -> [heads, hd, out]
+                arr = arr.T.reshape(heads, -1, arr.shape[0])
+            elif mha:  # [heads*hd, in] -> [in, heads, hd]
+                arr = arr.T.reshape(arr.shape[1], heads, -1)
+            else:
+                arr = arr.T
+        elif isinstance(m, tnn.Linear) and leaf == "bias" and mha and not owner.endswith("out"):
+            name, arr = "bias", arr.reshape(heads, -1)
+        else:  # biases and bare parameters keep their name and layout
+            name = leaf
+        full = "/".join(p for p in (coll, path, name) if p)
+        out[full] = np.ascontiguousarray(arr)
+    return out
+
+
 def _meta(make):
     with torch.device("meta"):
         return make()

@@ -8,6 +8,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,6 +67,13 @@ SLICE7_MODULES = ("models/phi3v.py", "weights/convert_phi3v.py", "train/synth_te
                   "train/synth_gui.py", "train/train_captioner.py", "eval/llm.py",
                   "eval/screenspot.py", "eval/synth_bench.py", "eval/real_bench.py",
                   "eval/__main__.py")
+# the eighth slice: training (the trainers, their losses and optimiser, the
+# checkpoints, the flax-equal BatchNorm)
+SLICE8_MODULES = ("train/__init__.py", "train/losses.py", "train/ocr_losses.py",
+                  "train/optim.py", "train/train_step.py", "train/train_detector.py",
+                  "train/train_ocr.py", "train/train_captioner.py", "train/trajectory_data.py",
+                  "weights/checkpoints.py", "weights/convert.py", "weights/init.py",
+                  "models/norm.py", "train/data.py")
 
 
 def test_the_family_modules_are_walked_and_import_none_of_jax():
@@ -75,8 +83,9 @@ def test_the_family_modules_are_walked_and_import_none_of_jax():
     statement."""
     names = set(_port_modules())
     host = {"PIL", "cv2", "regex"}  # the renderers draw with PIL and blur with cv2
-    for rel in FAMILY_MODULES + SLICE7_MODULES:
-        assert "omniparser_tpu_torch." + rel[:-3].replace("/", ".") in names
+    for rel in FAMILY_MODULES + SLICE7_MODULES + SLICE8_MODULES:
+        name = "omniparser_tpu_torch." + rel[:-3].replace("/", ".")
+        assert name.removesuffix(".__init__") in names
         roots = _imported_roots(os.path.join(ROOT, "omniparser_tpu_torch", rel))
         allowed = {"PIL"} if rel in FAMILY_MODULES else host
         assert not roots & set(FORBIDDEN) - allowed, (rel, roots & set(FORBIDDEN))
@@ -85,7 +94,7 @@ def test_the_family_modules_are_walked_and_import_none_of_jax():
 @pytest.mark.parametrize("rel", ["annotate.py", "utils/image.py", "models/tokenizer.py",
                                  "pipeline.py", "serving/http.py", "serving/batcher.py",
                                  "utils/metrics.py", "models/quant.py", *FAMILY_MODULES,
-                                 *SLICE7_MODULES])
+                                 *SLICE7_MODULES, *SLICE8_MODULES])
 def test_optional_host_libraries_are_imported_inside_functions(rel):
     """cv2, PIL and regex may appear only inside function bodies."""
     with open(os.path.join(ROOT, "omniparser_tpu_torch", rel)) as f:
@@ -144,6 +153,34 @@ def test_family_entry_points_default_to_the_card_and_raise_without_one():
         TorchOCR(OcrConfig(arch="easyocr", rec_height=64))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Blip2Captioner(CaptionerConfig(backend="blip2"), TINY_BLIP2)
+
+
+def test_training_entry_points_default_to_the_card_and_raise_without_one():
+    import torch
+
+    from omniparser_tpu_torch.train import train_captioner, train_detector, train_ocr
+    from omniparser_tpu_torch.train.synth_text import crops_from_buffers
+    from omniparser_tpu_torch.train.train_step import make_train_state
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a host without a CUDA device")
+    data = np.zeros((1, 8, 8, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_state(imgsz=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_detector.train_detector(1, 1, 0, 1, data=(data, None, None))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_ocr.train_recognizer(1, 1, data=(data, None))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_ocr.train_detector(1, 1, data=(data, None))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_captioner.train_captioner(1, 1, data=(data, None))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        crops_from_buffers(data, np.asarray([[8, 8]]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_captioner.crop_tiles(data, np.asarray([[0.0, 0.0, 1.0, 1.0]]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_detector.main(["--steps", "1", "--data", "1"])  # --device defaults to cuda
 
 
 def test_phi3v_and_eval_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
