@@ -112,6 +112,22 @@ once without a card.  Phases, one JSON line each:
                   loaded through SOMPipeline's weight fields equal, and one
                   parse_image of phase parse's screenshot (nms_keep 1,
                   merge_masks 1, crop_resize 2)
+  mesh            the device mesh (parallel/) on a virtual mesh of the card:
+                  ShardedParse of four 1080x1920 screenshots at (1, 1) and over
+                  [cuda:0] * 4 at (2, 2) with the parse's pipeline (launches
+                  nms_keep 4, merge_masks 4, crop_resize 4 x (line blocks + 1);
+                  against parse_image of each, elements matched by box:
+                  unmatched ones, differing fields, caption texts and the
+                  largest box difference counted, not required equal in
+                  bfloat16), walls, screenshots/s, a profiler pass and peak bytes
+                  beside parse_batch of the four; ShardedCaptioner at (2, 2) on
+                  the fused step's 128 caption crops (bfloat16 token rows that
+                  differ counted; a float32 copy with TF32 off must give equal
+                  tokens); single-step decode (split_decode off) parse_image of
+                  phase parse's screenshot, equal to the split path's (launches
+                  1 / 1 / 2); three steps of make_sharded_train_step at (2, 2)
+                  against train_step (YOLOv8-n @640 + Florence-2 BASE dims,
+                  batch 8, float32, TF32 off) within TRAIN_PARITY
   parity_on_card  the fused step on the card against the same step on the
                   CPU, same weights and image, float32, reduced size; then
                   that card pipeline's parse_batch of phase batch's four
@@ -127,10 +143,14 @@ once without a card.  Phases, one JSON line each:
                   run_eval with a MockLLM (scores and records equal);
                   training: three steps of the joint train_step and of each
                   trainer's step at reduced widths from the same weights and
-                  augmentation draws, losses and states within TRAIN_PARITY
+                  augmentation draws, losses and states within TRAIN_PARITY;
+                  a reduced ShardedParse at (2, 2) on the card against the CPU's
+                  (float32, TF32 off): every field but the boxes equal, boxes
+                  within 1e-4
 
-Each path (parse, batch, serve, int8, compat, families, eval, train_roundtrip;
-the training data paths for crop_resize) runs with the kernels' launch counters
+Each path (parse, batch, serve, int8, compat, families, eval, train_roundtrip,
+the mesh's ShardedParse at both shapes and single-step parse_image; the
+training data paths for crop_resize) runs with the kernels' launch counters
 set to 0 just before it and read just after, and fails if a kernel of the path
 was not launched.  Then the card's nvidia-smi line, one {"kernels": [...]} line
 (``launches``: the parse's counts; ``launches_by_path``: every path's) and,
@@ -3270,6 +3290,7 @@ def phase_parity(seed: int):
     del wit
     # the reference's two-call API with provided OCR boxes (ROADMAP C.10)
     parity_compat(cpu, gpu, image)
+    parity_mesh(seed, cpu, cfg, dims)
     parity_phi3v(seed, cpu, cfg, image)
     parity_eval(cpu, gpu, image)
     del cpu, gpu
@@ -3278,6 +3299,332 @@ def phase_parity(seed: int):
     parity_train(seed)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ #
+# phase mesh: the device mesh (parallel/) on a virtual mesh of one card
+# ------------------------------------------------------------------ #
+
+MESH_SHAPES = ((1, 1), (2, 2))  # (dp, tp) over [cuda:0] * (dp * tp)
+
+
+def mesh_of(dp: int, tp: int, dev: str = "cuda"):
+    """A (dp, tp) mesh that repeats one device: the card's cuda:0, or the CPU."""
+    from omniparser_tpu_torch.parallel.mesh import make_mesh
+
+    d = torch.device("cuda", 0) if dev == "cuda" else torch.device(dev)
+    return make_mesh([d] * (dp * tp), dp=dp, tp=tp)
+
+
+def _iou(a, b) -> float:
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - ix * iy
+    return ix * iy / union if union > 0 else 0.0
+
+
+def element_diffs(got, want):
+    """How a parse's elements differ from another's, matched by box (each
+    element of `got` to the unmatched one of `want` it overlaps most, IoU
+    at least 0.5; tests/test_sharded_parse.py's set parity): element counts,
+    elements left unmatched, fields of matched pairs that differ other than
+    caption text and boxes, caption texts that differ, the largest box
+    difference, and whether the order is the same."""
+    rest, unmatched, fields, flips, box = list(want), 0, 0, 0, 0.0
+    for a in got:
+        b = max(rest, key=lambda e: _iou(a["bbox"], e["bbox"]), default=None)
+        if b is None or _iou(a["bbox"], b["bbox"]) < 0.5:
+            unmatched += 1
+            continue
+        rest.remove(b)
+        fields += sum(a[k] != b[k] for k in ("type", "interactivity", "source"))
+        if a["source"] == b["source"] == "box_yolo_content_yolo":
+            flips += a["content"] != b["content"]
+        else:
+            fields += a["content"] != b["content"]
+        box = max(box, float(np.abs(np.asarray(a["bbox"]) - np.asarray(b["bbox"])).max()))
+    return {"elements": [len(got), len(want)], "unmatched": unmatched + len(rest),
+            "differing_fields": int(fields), "caption_texts_differing": int(flips),
+            "max_box_diff": box, "same_order": [e["bbox"] for e in got] == [
+                e["bbox"] for e in want]}
+
+
+def check_elements(path: str, results) -> None:
+    """Fail on a malformed parse: no elements, a bad schema, a box out of
+    range, an element without content."""
+    for _, _, elements in results:
+        if not elements:
+            fail(f"{path}: a parse returned no elements")
+        for e in elements:
+            if set(e) != {"type", "bbox", "interactivity", "content", "source"}:
+                fail(f"{path}: malformed element {e}")
+            if not all(np.isfinite(v) and -1e-6 <= v <= 1 + 1e-6 for v in e["bbox"]):
+                fail(f"{path}: bbox out of range {e}")
+            if e["content"] is None:
+                fail(f"{path}: element without content {e}")
+
+
+def phase_mesh(seed: int, pipe, image, launches_by_path, dev: str = "cuda"):
+    """The device mesh at full width on a virtual mesh of the card:
+    ShardedParse of four 1080x1920 screenshots at (1, 1) and (2, 2) against
+    parse_image of each and beside parse_batch of the four; ShardedCaptioner
+    at (2, 2) on 128 crops against the unsharded captioner; single-step
+    decode against the split one; the sharded train step at (2, 2) against
+    train_step."""
+    from omniparser_tpu_torch.models.florence2 import FlorenceCaptioner
+    from omniparser_tpu_torch.parallel.sharded import ShardedCaptioner
+    from omniparser_tpu_torch.parallel.sharded_parse import ShardedParse
+    from omniparser_tpu_torch.pipeline import SOMPipeline
+
+    t_phase = time.perf_counter()
+    images = [synthetic_screenshot(np.random.default_rng(seed + 21 + i)) for i in range(4)]
+    n = len(images)
+
+    def wall(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        single, line_blocks = [], []
+        for img in images:
+            reset_counts()
+            single.append(pipe.parse_image(img))
+            line_blocks.append(all_counts()["crop_resize"] - 1)
+        pipe.parse_batch(images)
+        batch_ms = [wall(lambda: pipe.parse_batch(images)) for _ in range(3)]
+        batch_prof = profile_pass(lambda: wall(lambda: pipe.parse_batch(images)), batch_ms)
+    emit("mesh", images=[list(i.shape) for i in images], line_blocks=line_blocks,
+         parse_batch={"wall_ms": [round(x, 2) for x in batch_ms],
+                      "screenshots_per_s": [round(n / x * 1e3, 3) for x in batch_ms],
+                      "profile": batch_prof})
+
+    for dp, tp in MESH_SHAPES:
+        path = f"mesh_sharded_parse_{dp}x{tp}"
+        sp = ShardedParse(pipe, mesh_of(dp, tp, dev))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            sp.parse_images(images)  # warm-up: the batched shapes' first launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            got = sp.parse_images(images)
+            torch.cuda.synchronize()
+            counts = all_counts()
+            peak = torch.cuda.max_memory_allocated()
+            walls = [wall(lambda: sp.parse_images(images)) for _ in range(3)]
+            prof = profile_pass(lambda: wall(lambda: sp.parse_images(images)), walls)
+        path_counts(path, counts, launches_by_path)
+        check_elements(path, got)
+        want_crop = n * (max(line_blocks) + 1)
+        emit("mesh", path=path, dp=dp, tp=tp, launches=counts,
+             launches_wanted={"nms_keep": n, "merge_masks": n, "crop_resize": want_crop},
+             against_parse_image=[element_diffs(g[2], s[2]) for g, s in zip(got, single)],
+             wall_ms=[round(x, 2) for x in walls],
+             screenshots_per_s=[round(n / x * 1e3, 3) for x in walls],
+             host_stage_ms={k: round(v * 1e3, 3) for k, v in sp.last_timings.items()},
+             profile=prof, max_memory_allocated=peak)
+        if counts["nms_keep"] != n or counts["merge_masks"] != n or \
+                counts["crop_resize"] != want_crop or counts["overlap_matrices"]:
+            fail(f"mesh: {path} launched {counts}, want nms_keep {n}, merge_masks {n}, "
+                 f"crop_resize {want_crop} (each image's line blocks and caption grid)")
+        del sp
+
+    # ShardedCaptioner at (2, 2) on the fused step's 128 caption crops: in
+    # the pipeline's bfloat16 (each row decodes 64 crops, where cuBLAS may
+    # pick another kernel than for 128, ROADMAP C.7: flips counted), then
+    # a float32 copy with TF32 off, whose tokens must be equal
+    ctx = pipe._stage_upload(image)
+    ctx["ocr_fut"] = pipe.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
+    crops = pipe._stage_dispatch(ctx, None, None)
+    cap = pipe.captioner
+    sc = ShardedCaptioner(cap, mesh_of(2, 2, dev))
+    want_t, want_lp = cap.generate(crops)
+    got_t, got_lp = sc.generate(crops)
+    rows = int((got_t != want_t).any(dim=1).sum())
+    cap_ms = {"unsharded": [round(wall(lambda: cap.generate(crops)), 2) for _ in range(3)],
+              "sharded_2x2": [round(wall(lambda: sc.generate(crops)), 2) for _ in range(3)]}
+    del sc
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cap32 = FlorenceCaptioner(dataclasses.replace(cap.config, dtype="float32"), cap.dims,
+                              cap.model.state_dict(), device=dev)
+    want32, _ = cap32.generate(crops)
+    got32, _ = ShardedCaptioner(cap32, mesh_of(2, 2, dev)).generate(crops)
+    rows32 = int((got32 != want32).any(dim=1).sum())
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit("mesh", check="ShardedCaptioner (2, 2) against the unsharded captioner",
+         crops=list(crops.shape), bfloat16={"token_rows_differing": rows,
+                                           "max_logp_diff": float((got_lp - want_lp).abs().max())},
+         float32_tf32_off={"token_rows_differing": rows32}, decode_wall_ms=cap_ms)
+    if rows32:
+        fail(f"mesh: in float32 ShardedCaptioner's tokens differ from the unsharded ones "
+             f"in {rows32} rows")
+    del cap32
+
+    # single-step decode: the fused step decodes all K slots
+    cfg1 = dataclasses.replace(pipe.config, captioner=dataclasses.replace(
+        pipe.config.captioner, split_decode=False))
+    one = SOMPipeline(cfg1, device=dev, detector=pipe.detector, det_module=pipe.det_module,
+                      ocr=pipe.ocr, captioner=cap)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        one.parse_image(image)  # warm-up
+        reset_counts()
+        _, _, el_one = one.parse_image(image)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        _, _, el_split = pipe.parse_image(image)
+        one_ms = [wall(lambda: one.parse_image(image)) for _ in range(3)]
+        split_ms = [wall(lambda: pipe.parse_image(image)) for _ in range(3)]
+    path_counts("single_step_parse_image", counts, launches_by_path)
+    diff = element_diffs(el_one, el_split)
+    emit("mesh", check="single-step decode (split_decode off) against the split decode",
+         launches=counts, kb=one.last_counts["kb"], against_split=diff,
+         wall_ms={"single_step": [round(x, 2) for x in one_ms],
+                  "split": [round(x, 2) for x in split_ms]})
+    if el_one != el_split:
+        fail(f"mesh: single-step decode's elements differ from the split path's: {diff}")
+    if counts["nms_keep"] != 1 or counts["merge_masks"] != 1 or \
+            counts["crop_resize"] != launches_by_path["parse"]["crop_resize"]:
+        fail(f"mesh: single-step parse_image launched {counts}")
+    del one
+    mesh_train(seed, dev)
+    emit("mesh", seconds=round(time.perf_counter() - t_phase, 1))
+
+
+class _Whole:
+    """A module's state dict on the host, with each split parameter read
+    whole (through its gather), for module_diff."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def state_dict(self):
+        from torch.nn.utils import parametrize
+
+        out = {}
+        for name, m in self.module.named_modules():
+            pre = name + "." if name else ""
+            for k, t in m.named_parameters(recurse=False):
+                out[pre + k] = t.detach()
+            for k, t in m.named_buffers(recurse=False):
+                out[pre + k] = t
+            if parametrize.is_parametrized(m):
+                for k in m.parametrizations:
+                    out[pre + k] = getattr(m, k).detach()
+        return {k: v.cpu() for k, v in out.items() if ".parametrizations." not in k
+                and not k.startswith("parametrizations.")}
+
+
+def mesh_train(seed: int, dev: str = "cuda", imgsz: int = TRAIN_IMGSZ, dims=None, mesh=None):
+    """Three steps of make_sharded_train_step at (2, 2) (`mesh`, default the
+    virtual one of `dev`) against train_step from the same state and batch:
+    YOLOv8-n + Florence-2 BASE dims, batch 8, float32 with TF32 off, held to
+    TRAIN_PARITY's shares."""
+    from omniparser_tpu_torch.models.florence2 import BASE, TASK_PROMPTS
+    from omniparser_tpu_torch.models.tokenizer import load_tokenizer
+    from omniparser_tpu_torch.train.train_step import (
+        make_sharded_train_step, make_synthetic_batch, make_train_state, train_step)
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dims = dims or BASE
+    lr, steps = 1e-4, 3
+    sts = [make_train_state(imgsz=imgsz, florence_dims=dims, learning_rate=lr, device=dev,
+                            generator=torch.Generator(dev).manual_seed(seed),
+                            dtype=torch.float32) for _ in range(2)]
+    sts[1].det_module.load_state_dict(sts[0].det_module.state_dict())
+    sts[1].florence.load_state_dict(sts[0].florence.state_dict())
+    step = make_sharded_train_step(sts[1], mesh or mesh_of(2, 2, dev))
+    prompt_len = len(load_tokenizer(None).encode(TASK_PROMPTS["<CAPTION>"]))
+    batch = make_synthetic_batch(torch.Generator(dev).manual_seed(seed + 1), 8, imgsz, max_gt=8,
+                                 crop=64, prompt_len=prompt_len, cap_len=20)
+    losses, walls, first = ([], []), ([], []), {}
+    for i in range(steps):
+        for side, call in enumerate((lambda: train_step(sts[0], batch), lambda: step(batch))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[side].append(float(call()["loss"]))
+            walls[side].append(round((time.perf_counter() - t0) * 1e3, 2))
+        if i == 0:
+            first = {"detector": module_diff("sharded train step", _Whole(sts[0].det_module),
+                                             _Whole(sts[1].det_module), lr, 1,
+                                             TRAIN_PARITY["param_far_share"]),
+                     "florence": module_diff("sharded train step", _Whole(sts[0].florence),
+                                             _Whole(sts[1].florence), lr, 1,
+                                             TRAIN_PARITY["param_far_share"])}
+    check_train_losses("sharded train step", *losses)
+    split = sum(1 for _ in sts[1].florence.modules()
+                if getattr(_, "parametrizations", None) is not None)
+    emit("mesh", check="make_sharded_train_step (2, 2) against train_step, float32, TF32 off",
+         widths=f"YOLOv8-n @{imgsz} + Florence-2 {'BASE' if dims is BASE else 'reduced'} "
+                "dims, batch 8, adamw 1e-4", losses={"train_step": losses[0],
+                                                     "sharded": losses[1]},
+         step_wall_ms={"train_step": walls[0], "sharded": walls[1]},
+         florence_modules_split_over_tp=split, first_step=first,
+         after_three={"detector": module_diff("sharded train step", _Whole(sts[0].det_module),
+                                              _Whole(sts[1].det_module), lr, steps, None),
+                      "florence": module_diff("sharded train step", _Whole(sts[0].florence),
+                                              _Whole(sts[1].florence), lr, steps,
+                                              TRAIN_PARITY["later_far_share"])},
+         tolerances=TRAIN_PARITY)
+    if not split:
+        fail("mesh: the sharded train step split no Florence-2 parameter over tp")
+    del sts, step
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def parity_mesh(seed: int, cpu, cfg, dims, dev: str = "cuda"):
+    """A reduced ShardedParse at (2, 2) on the card against the same on the
+    CPU, float32 with TF32 off, at text threshold 0 (OCR text reaches the
+    merge) and at the default one (icons without text need captions):
+    every field but the boxes equal, boxes within 1e-4.  The detector's
+    class convolutions are scaled so that its scores spread over (0, 1)
+    (no near-ties for the two sides' float32 sums to swap)."""
+    from omniparser_tpu_torch.config import OcrConfig
+    from omniparser_tpu_torch.parallel.mesh import make_mesh
+    from omniparser_tpu_torch.parallel.sharded_parse import ShardedParse
+    from omniparser_tpu_torch.pipeline import SOMPipeline
+
+    det_state = {k: v.clone() for k, v in cpu.det_module.state_dict().items()}
+    for i in range(3):
+        det_state[f"head.cls{i}_2.weight"] *= 20.0
+    sides = [SOMPipeline(cfg, device=d, captioner_dims=dims, detector_state=det_state,
+                         ocr_states=(cpu.ocr.det.state_dict(), cpu.ocr.rec.state_dict()),
+                         captioner_state=cpu.captioner.model.state_dict())
+             for d in ("cpu", dev)]
+    sharded = [ShardedParse(p, m) for p, m in zip(
+        sides, (make_mesh(["cpu"] * 4, dp=2, tp=2), mesh_of(2, 2, dev)))]
+    images = [synthetic_screenshot(np.random.default_rng(seed + 41 + i), 540, 960)
+              for i in range(2)]
+    found = {}
+    for thr in (0.0, OcrConfig().text_threshold):
+        for p in sides:
+            p.config = dataclasses.replace(cfg, ocr=dataclasses.replace(cfg.ocr,
+                                                                         text_threshold=thr))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            a, b = (sp.parse_images(images) for sp in sharded)
+        diffs = [element_diffs(y[2], x[2]) for x, y in zip(a, b)]
+        strict = [same_elements(y[2], x[2], 1e-4) for x, y in zip(a, b)]
+        found[thr] = {"text": sum(e["type"] == "text" for _, _, el in a for e in el),
+                      "captions": sum(e["source"] == "box_yolo_content_yolo"
+                                      for _, _, el in a for e in el)}
+        emit("parity_on_card", check="ShardedParse (2, 2), card against CPU, float32, TF32 off",
+             text_threshold=thr, images=[list(i.shape) for i in images], against_cpu=diffs,
+             elements=found[thr])
+        for (bad, flips), d in zip(strict, diffs):
+            if bad or flips:  # in order, every field, boxes within 1e-4
+                fail(f"parity_on_card: ShardedParse on the card differs from the CPU's: "
+                     f"{bad}, {flips} captions; {diffs}")
+    if not found[0.0]["text"] or not found[OcrConfig().text_threshold]["captions"]:
+        fail(f"parity_on_card: the sharded parses read no text or decoded no caption: {found}")
 
 
 def main() -> None:
@@ -3299,6 +3646,7 @@ def main() -> None:
     phase_families(args.seed, pipe, image, launches_by_path)
     phase_eval(pipe, image, launches_by_path)
     phase_train(args.seed, image, launches_by_path)
+    phase_mesh(args.seed, pipe, image, launches_by_path)
     emit("launches", by_path=launches_by_path)
     del pipe, single
     torch.cuda.empty_cache()

@@ -410,13 +410,22 @@ static size_t scan_stream_smem_bytes(int cb) {
          (size_t)64 * cb * sizeof(uint16_t);
 }
 
-// Set a kernel's dynamic shared memory limit once it needs more than 48 KB.
+// Set a kernel's dynamic shared memory limit where it needs more than 48 KB:
+// once a device, since the attribute belongs to the device's context (a
+// process that launches on several cards sets it on each).  set[d]: the
+// limit set on device d so far, 0 for the 48 KB default.
+static const int MAX_DEVICES = 64;
+
 static int allow_smem(const void* kernel, size_t bytes, size_t* set) {
-  if (bytes <= *set) return 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  *set = bytes;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (bytes <= set[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  set[dev] = bytes;
   return 0;
 }
 
@@ -432,11 +441,11 @@ extern "C" int nms_mask_launch(const void* boxes, void* mask, int n, float thr, 
 // nms_mask_launch.  n <= 4096: the pipelined scan.
 extern "C" int nms_scan_fast_launch(const void* valid, void* keep, const void* mask, int n,
                                     void* stream) {
-  static size_t smem_set = 48 * 1024;
+  static size_t smem_set[MAX_DEVICES] = {};
   if (n > 4096) return (int)cudaErrorInvalidValue;
   const int cb = (n + 63) / 64;
   const size_t smem = scan_fast_smem_bytes(cb);
-  const int err = allow_smem((const void*)nms_scan_fast_kernel, smem, &smem_set);
+  const int err = allow_smem((const void*)nms_scan_fast_kernel, smem, smem_set);
   if (err != 0) return err;
   nms_scan_fast_kernel<<<1, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
       (const u64*)mask, (const uint8_t*)valid, (uint8_t*)keep, n, cb);
@@ -448,11 +457,11 @@ extern "C" int nms_scan_fast_launch(const void* valid, void* keep, const void* m
 // the kept list (128 KB at N = 65536) still fits beside the stages.
 extern "C" int nms_scan_stream_launch(const void* valid, void* keep, const void* mask, int n,
                                       void* stream) {
-  static size_t smem_set = 48 * 1024;
+  static size_t smem_set[MAX_DEVICES] = {};
   if (n > 65536) return (int)cudaErrorInvalidValue;
   const int cb = (n + 63) / 64;
   const size_t smem = scan_stream_smem_bytes(cb);
-  const int err = allow_smem((const void*)nms_scan_stream_kernel, smem, &smem_set);
+  const int err = allow_smem((const void*)nms_scan_stream_kernel, smem, smem_set);
   if (err != 0) return err;
   nms_scan_stream_kernel<<<1, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
       (const u64*)mask, (const uint8_t*)valid, (uint8_t*)keep, n, cb);

@@ -239,7 +239,31 @@ class Detector:
         level_outputs = module(img.permute(2, 0, 1)[None])
         boxes, scores = decode_predictions(level_outputs)
         boxes, scores = boxes[0], scores[0].max(dim=-1).values
+        out = self._select(boxes, scores, r, pad, orig_hw, conf_threshold, nms_iou, with_stats)
+        if with_raw:
+            h, w = int(orig_hw[0]), int(orig_hw[1])
+            wh = torch.tensor([w, h, w, h], dtype=torch.float32, device=boxes.device)
+            raw_nb = boxes_letterboxed_to_image(boxes, r, pad, orig_hw)
+            out = out + ((raw_nb / wh, scores),)
+        return out
 
+    @torch.no_grad()
+    def detect_batch(self, module: YOLOv8, padded_u8: torch.Tensor, hws,
+                     conf_threshold: float, nms_iou: float, with_stats: bool = False):
+        """detect_graph over a stack of bucket-padded frames [B,Hb,Wb,3]
+        with their (h, w): one network forward over the B letterboxed
+        images, then each image's top-k window and NMS (one NMS launch an
+        image).  Returns a list of detect_graph's tuples, one an image."""
+        lbs = [letterbox(padded_u8[i], hws[i], self.imgsz) for i in range(len(hws))]
+        level_outputs = module(torch.stack([img for img, _, _ in lbs]).permute(0, 3, 1, 2))
+        boxes, scores = decode_predictions(level_outputs)
+        scores = scores.max(dim=-1).values
+        return [self._select(boxes[i], scores[i], r, pad, hws[i], conf_threshold, nms_iou,
+                             with_stats) for i, (_, r, pad) in enumerate(lbs)]
+
+    def _select(self, boxes, scores, r, pad, orig_hw, conf_threshold, nms_iou, with_stats):
+        """One image's decoded boxes [A,4] (letterboxed pixels) and scores
+        [A] -> the top-k window, NMS and normalised boxes."""
         keep = scores > conf_threshold
         k = min(max(self.prefilter, self.max_det * 2), boxes.shape[0])
         masked = torch.where(keep, scores, torch.full_like(scores, -1.0))
@@ -258,7 +282,4 @@ class Detector:
         out = (nb / wh, ns, nv)
         if with_stats:
             out = out + (torch.clamp(keep.sum() - k, min=0),)
-        if with_raw:
-            raw_nb = boxes_letterboxed_to_image(boxes, r, pad, orig_hw)
-            out = out + ((raw_nb / wh, scores),)
         return out

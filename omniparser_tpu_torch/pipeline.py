@@ -7,7 +7,9 @@
             OCR line recogniser + CTC stats -> overlap/merge masks ->
             caption-slot compaction -> crop-gather  (-> ONE download)
     device: Florence greedy decode over the smallest power-of-2 slot
-            bucket that covers the content-less icons
+            bucket that covers the content-less icons (with
+            ``CaptionerConfig.split_decode`` off, single-step decode: the
+            fused step decodes all K slots before the download)
     host:   strings, SOM overlay, JSON
 
 Host-candidate OCR (``OcrConfig.device_components`` or ``fused_candidates``
@@ -109,7 +111,8 @@ def fused_parse_step(cfg: PipelineConfig, detector: Detector, det_module,
                      ocr_a: torch.Tensor, ocr_b: torch.Tensor, lb_r, lb_pads,
                      conf_thr: float, nms_iou: float, merge_iou: float, text_thr: float,
                      device_candidates: bool,
-                     stage_ms: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
+                     stage_ms: Optional[Dict[str, float]] = None,
+                     decode_with=None) -> Dict[str, torch.Tensor]:
     """The device step between the OCR detector and the caption decode.
 
     hw: the uploaded (possibly downscaled) frame, drives geometry; true_hw:
@@ -117,61 +120,122 @@ def fused_parse_step(cfg: PipelineConfig, detector: Detector, det_module,
     resolution.  ocr_a/ocr_b: with device_candidates the detector's
     component boxes [C,4] and count (still on the device) plus this
     image's letterbox lb_r/lb_pads; otherwise (boxes_norm, valid).
+    decode_with: a fusable captioner that decodes all K caption slots in
+    the step (single-step decode: ``CaptionerConfig.split_decode`` off);
+    its tokens and log-probs join the outputs in place of the crops.
     """
-    dev = padded.device
-    watch = _Stopwatch(stage_ms, dev)
-    h, w = true_hw
-    max_ocr = cfg.ocr.max_text_boxes
-    ocr_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    if device_candidates:
-        ocr_boxes_norm, ocr_cand_valid, ocr_overflow = candidate_boxes_from_cc(
-            ocr_a, ocr_b, lb_r, lb_pads, hw, max_boxes=max_ocr)
-    else:
-        ocr_boxes_norm, ocr_cand_valid = ocr_a, ocr_b
+    watch = _Stopwatch(stage_ms, padded.device)
+    ocr_boxes_norm, ocr_cand_valid, ocr_overflow = ocr_candidates(
+        cfg, ocr_a, ocr_b, lb_r, lb_pads, hw, device_candidates)
     watch.lap("candidates")
 
-    det_boxes, det_scores, det_valid, det_overflow = detector.detect_graph(
-        det_module, padded, hw, conf_thr, nms_iou, with_stats=True)
-    det_valid = det_valid & (int_box_area(det_boxes, w, h) > 0)
+    det = detector.detect_graph(det_module, padded, hw, conf_thr, nms_iou, with_stats=True)
+    det = gate_detections(det, true_hw)
     watch.lap("detect_nms")
 
-    M = ocr_boxes_norm.shape[0]
+    rec = None
     if ocr is not None:
-        rec_hw = (cfg.ocr.rec_height, cfg.ocr.rec_max_width)
-        blk = cfg.ocr.rec_block
+        rec = [x[0] for x in recognise_lines(cfg, ocr, [(padded, hw)], [ocr_boxes_norm],
+                                             [ocr_cand_valid])]
+    watch.lap("recognise")
 
-        def recognise(boxes_b):
-            crops = crop_lines_batch(padded, hw, boxes_b.contiguous(), rec_hw)
-            return ctc_device_stats(ocr.rec(ocr.rec_preprocess(crops)))
+    out = merge_outputs(det, ocr_boxes_norm, ocr_cand_valid, ocr_overflow, rec, true_hw,
+                        merge_iou, text_thr, device_candidates)
+    watch.lap("merge")
 
-        if blk and M % blk == 0 and M // blk > 1:
-            # block-looped recognition: the trip count is the real
-            # candidate count's (one host read of a device scalar), so the
-            # cost follows the screenshot's text density, not the slot cap.
-            # Invalid slots keep all-blank ids (id 0) => n_chars 0.
-            n_valid = torch.where(
-                ocr_cand_valid, torch.arange(M, dtype=torch.int32, device=dev) + 1,
-                torch.zeros((), dtype=torch.int32, device=dev)).max()
-            n_blocks = (int(n_valid) + blk - 1) // blk
-            T = ocr.rec_len
-            rec_ids = torch.zeros((M, T), dtype=torch.int32, device=dev)
-            rec_conf = torch.zeros((M,), dtype=torch.float32, device=dev)
-            n_chars = torch.zeros((M,), dtype=torch.int32, device=dev)
-            for i in range(n_blocks):
-                s = i * blk
-                ids_b, conf_b, nch_b = recognise(ocr_boxes_norm[s:s + blk])
-                rec_ids[s:s + blk] = ids_b
-                rec_conf[s:s + blk] = conf_b
-                n_chars[s:s + blk] = nch_b
-        else:
-            rec_ids, rec_conf, n_chars = recognise(ocr_boxes_norm)
+    if do_cap:
+        out.update(caption_slots(cfg, out, padded, hw))
+        watch.lap("caption_crops")
+        if decode_with is not None:
+            out["cap_tokens"], out["cap_logp"] = decode_with.generate(out.pop("crops"))
+            watch.lap("decode")
+    return out
+
+
+def ocr_candidates(cfg: PipelineConfig, ocr_a, ocr_b, lb_r, lb_pads, hw,
+                   device_candidates: bool):
+    """(boxes_norm [M,4], candidate valid [M], overflow count): unclip and
+    unmap of the detector's components on the device, or the host's boxes
+    as given."""
+    if device_candidates:
+        return candidate_boxes_from_cc(ocr_a, ocr_b, lb_r, lb_pads, hw,
+                                       max_boxes=cfg.ocr.max_text_boxes)
+    return ocr_a, ocr_b, torch.zeros((), dtype=torch.int32, device=ocr_a.device)
+
+
+def gate_detections(det, true_hw):
+    """detect_graph's (boxes, scores, valid, overflow) with the zero-area
+    gate at the ORIGINAL dims applied to valid."""
+    boxes, scores, valid, overflow = det
+    h, w = true_hw
+    return boxes, scores, valid & (int_box_area(boxes, w, h) > 0), overflow
+
+
+def recognise_lines(cfg: PipelineConfig, ocr: TorchOCR, frames, boxes, cand_valid,
+                    n_valid: Optional[int] = None):
+    """The recogniser over the OCR candidate slots of one or more frames.
+
+    frames: [(padded, hw)]; boxes: each frame's [M,4] normalised boxes (the
+    same M for all); cand_valid: each frame's [M] validity.  Each frame's
+    line crops come from its own crop launch; one recogniser forward takes
+    the lines of every frame, ``rec_block`` slots of each at a time, and
+    the number of blocks run is the largest real candidate count's (one
+    host read of a device scalar), so the cost follows the text density,
+    not the slot cap; `n_valid` gives that count where the caller took it
+    over more frames.  Slots of blocks not run keep all-blank ids (id 0)
+    => n_chars 0.  Returns (rec_ids [B,M,T], rec_conf [B,M], n_chars [B,M]).
+    """
+    b, m = len(frames), boxes[0].shape[0]
+    dev = boxes[0].device
+    rec_hw = (cfg.ocr.rec_height, cfg.ocr.rec_max_width)
+    blk = cfg.ocr.rec_block
+
+    def recognise(s, e):
+        crops = [crop_lines_batch(padded, hw, bx[s:e].contiguous(), rec_hw)
+                 for (padded, hw), bx in zip(frames, boxes)]
+        ids, conf, nch = ctc_device_stats(ocr.rec(ocr.rec_preprocess(
+            crops[0] if b == 1 else torch.cat(crops))))
+        return ids.reshape(b, e - s, -1), conf.reshape(b, e - s), nch.reshape(b, e - s)
+
+    if not (blk and m % blk == 0 and m // blk > 1):
+        return recognise(0, m)
+    if n_valid is None:
+        n_valid = int(torch.stack([last_valid_slot(v) for v in cand_valid]).max())
+    rec_ids = torch.zeros((b, m, ocr.rec_len), dtype=torch.int32, device=dev)
+    rec_conf = torch.zeros((b, m), dtype=torch.float32, device=dev)
+    n_chars = torch.zeros((b, m), dtype=torch.int32, device=dev)
+    for i in range((n_valid + blk - 1) // blk):
+        s = i * blk
+        rec_ids[:, s:s + blk], rec_conf[:, s:s + blk], n_chars[:, s:s + blk] = \
+            recognise(s, s + blk)
+    return rec_ids, rec_conf, n_chars
+
+
+def last_valid_slot(valid: torch.Tensor) -> torch.Tensor:
+    """1 + the index of the last True of `valid` [M], 0 where none (a
+    device scalar)."""
+    slot = torch.arange(valid.shape[0], dtype=torch.int32, device=valid.device) + 1
+    return torch.where(valid, slot, torch.zeros((), dtype=torch.int32,
+                                                device=valid.device)).max()
+
+
+def merge_outputs(det, ocr_boxes_norm, ocr_cand_valid, ocr_overflow, rec, true_hw,
+                  merge_iou: float, text_thr: float, device_candidates: bool
+                  ) -> Dict[str, torch.Tensor]:
+    """The OCR validity gates, the icon/OCR merge (one merge launch) and the
+    step's outputs.  det: the gated detections; rec: (rec_ids [M,T],
+    rec_conf [M], n_chars [M]) or None without a recogniser."""
+    det_boxes, det_scores, det_valid, det_overflow = det
+    h, w = true_hw
+    m, dev = ocr_boxes_norm.shape[0], ocr_boxes_norm.device
+    if rec is not None:
+        rec_ids, rec_conf, n_chars = rec
         ocr_valid = ocr_cand_valid & (n_chars > 0) & (rec_conf > text_thr)
     else:
-        rec_ids = torch.zeros((M, 1), dtype=torch.int32, device=dev)
-        rec_conf = torch.zeros((M,), dtype=torch.float32, device=dev)
+        rec_ids = torch.zeros((m, 1), dtype=torch.int32, device=dev)
+        rec_conf = torch.zeros((m,), dtype=torch.float32, device=dev)
         ocr_valid = ocr_cand_valid
     ocr_valid = ocr_valid & (int_box_area(ocr_boxes_norm, w, h) > 0)
-    watch.lap("recognise")
 
     res = merge_icons_and_ocr(det_boxes, det_valid, ocr_boxes_norm, ocr_valid, merge_iou)
     out = {
@@ -193,28 +257,32 @@ def fused_parse_step(cfg: PipelineConfig, detector: Detector, det_module,
         out["ocr_boxes"] = ocr_boxes_norm
         out["ocr_cand_valid"] = ocr_cand_valid
         out["ocr_overflow"] = ocr_overflow
-    watch.lap("merge")
-
-    if do_cap:
-        K = cfg.captioner.batch_size
-        n = det_boxes.shape[0]
-        need = res.icon_keep & ~res.absorb.any(dim=1)
-        rank = torch.cumsum(need.to(torch.int64), 0) - 1
-        # slots beyond K scatter to a spare last slot that is cut
-        dest = torch.where(need & (rank < K), rank, torch.full_like(rank, K))
-        cap_boxes = torch.zeros((K + 1, 4), dtype=det_boxes.dtype, device=dev)
-        cap_boxes[dest] = det_boxes
-        cap_valid = torch.zeros((K + 1,), dtype=torch.bool, device=dev)
-        cap_valid[dest] = need
-        cap_src = torch.full((K + 1,), -1, dtype=torch.int32, device=dev)
-        cap_src[dest] = torch.arange(n, dtype=torch.int32, device=dev)
-        cap_valid, cap_src = cap_valid[:K], cap_src[:K]
-        out["crops"] = crop_resize_batch(padded, hw, cap_boxes[:K].contiguous(),
-                                         cfg.captioner.crop_size)
-        out.update(cap_valid=cap_valid, cap_src=cap_src,
-                   cap_overflow=need.sum() - cap_valid.sum())
-        watch.lap("caption_crops")
     return out
+
+
+def caption_slots(cfg: PipelineConfig, out: Dict[str, torch.Tensor], padded, hw
+                  ) -> Dict[str, torch.Tensor]:
+    """Caption-slot compaction (the content-less icons first, at most K)
+    and their crops (K3's caption grid)."""
+    K = cfg.captioner.batch_size
+    det_boxes = out["det_boxes"]
+    dev = det_boxes.device
+    n = det_boxes.shape[0]
+    need = out["icon_keep"] & ~out["absorb"].any(dim=1)
+    rank = torch.cumsum(need.to(torch.int64), 0) - 1
+    # slots beyond K scatter to a spare last slot that is cut
+    dest = torch.where(need & (rank < K), rank, torch.full_like(rank, K))
+    cap_boxes = torch.zeros((K + 1, 4), dtype=det_boxes.dtype, device=dev)
+    cap_boxes[dest] = det_boxes
+    cap_valid = torch.zeros((K + 1,), dtype=torch.bool, device=dev)
+    cap_valid[dest] = need
+    cap_src = torch.full((K + 1,), -1, dtype=torch.int32, device=dev)
+    cap_src[dest] = torch.arange(n, dtype=torch.int32, device=dev)
+    cap_valid, cap_src = cap_valid[:K], cap_src[:K]
+    return {"crops": crop_resize_batch(padded, hw, cap_boxes[:K].contiguous(),
+                                       cfg.captioner.crop_size),
+            "cap_valid": cap_valid, "cap_src": cap_src,
+            "cap_overflow": need.sum() - cap_valid.sum()}
 
 
 def _flat_weights(field: Optional[str], name: str):
@@ -454,8 +522,10 @@ class SOMPipeline:
                 raise ValueError(f"unknown captioner backend {backend!r}")
         self.captioner = captioner
         self._florence = captioner if getattr(captioner, "fusable", False) else None
-        if self._florence is not None and not config.captioner.split_decode:
-            raise NotImplementedError("single-step decode is not ported: keep split_decode on")
+        # single-step decode (split_decode off): the fused step decodes all
+        # K caption slots itself, so no crops leave it and nothing is left
+        # to decode after the download
+        self._step_decodes = self._florence is not None and not config.captioner.split_decode
         self.last_timings: Dict[str, float] = {}
         self.last_counts: Dict[str, int] = {}
         # parse_batch: the slots of each decode chunk of the last batch
@@ -602,10 +672,11 @@ class SOMPipeline:
         of a blank image per shape (builds the CUDA kernels at their first
         launch, picks the library's algorithms), then one caption decode
         per slot bucket that parse_batch can use (blank images need no
-        captions, so their parses never decode)."""
+        captions, so their parses never decode).  With single-step decode
+        every parse decodes its K slots, so there are no buckets."""
         for h, w in shapes:
             self.parse_image(np.zeros((h, w, 3), np.uint8))
-        if self._florence is not None:
+        if self._florence is not None and not self._step_decodes:
             cs = self.config.captioner.crop_size
             for kb in cap_buckets:
                 if kb <= self._DECODE_CHUNK:
@@ -667,7 +738,8 @@ class SOMPipeline:
             ctx["padded_dev"], (ctx["uh"], ctx["uw"]), (ctx["h"], ctx["w"]),
             ocr_a, ocr_b, r, pads,
             box_threshold, cfg.detector.nms_iou_threshold, iou_threshold,
-            cfg.ocr.text_threshold, self._fused_ocr, self.stage_ms)
+            cfg.ocr.text_threshold, self._fused_ocr, self.stage_ms,
+            decode_with=self._florence if self._step_decodes else None)
         crops_dev = out.pop("crops", None)  # stays on the device
         if "cc_count" in ctx:
             out["cc_count"] = ctx.pop("cc_count")
@@ -681,8 +753,9 @@ class SOMPipeline:
     def _dispatch_decode(self, ctx: Dict, crops_dev) -> None:
         """Greedy-decode only the smallest power-of-2 slot bucket (from 8)
         covering this image's content-less icon count; the compaction in
-        the fused step packed them first.  Zero need => no decode."""
-        ctx["kb"] = 0
+        the fused step packed them first.  Zero need => no decode.  With
+        single-step decode the step has decoded all K slots already."""
+        ctx["kb"] = self.config.captioner.batch_size if "cap_tokens" in ctx["out"] else 0
         if crops_dev is None or "cap_valid" not in ctx["out"]:
             return
         need = int(ctx["out"]["cap_valid"].sum())
@@ -921,8 +994,8 @@ class SOMPipeline:
         for s in range(0, pad_n, bs):
             crops = crop_resize_batch(
                 ctx["padded_dev"], (ctx["uh"], ctx["uw"]),
-                torch.from_numpy(arr[s: s + bs]).to(self.device), cfg.crop_size)
-            out.extend(self.captioner.caption_crops(crops, valid[s: s + bs]))
+                torch.from_numpy(arr[s: s + bs]).to(ctx["padded_dev"].device), cfg.crop_size)
+            out.extend(self.captioner.caption_crops(crops.to(self.device), valid[s: s + bs]))
         return out
 
     def content_lines(self, elements) -> List[str]:

@@ -203,11 +203,10 @@ def main(argv=None):
                     help="SOM overlay canvas cap (0 = native resolution); "
                     "drawing+PNG at 4K costs 0.1-0.4 s/request")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
-                    help="multi-device serving: not ported (raises)")
+                    help="shard batched parses over a device mesh, e.g. '8,1' (data "
+                    "parallel) or '4,2' (dp x captioner tensor parallel); requires "
+                    "dp*tp CUDA devices (with --device cpu: a mesh of dp*tp CPU entries)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: multi-device serving is not ported "
-                                  "(ROADMAP queue A.10)")
 
     import dataclasses
 
@@ -226,8 +225,19 @@ def main(argv=None):
         captioner_weights=args.caption_model_path or "auto",
         max_som_side=args.max_som_side or None,
     )
+    pipeline = None
+    if args.mesh:
+        from omniparser_tpu_torch.parallel.mesh import make_mesh
+        from omniparser_tpu_torch.parallel.sharded_parse import ShardedServingPipeline
+        from omniparser_tpu_torch.pipeline import SOMPipeline
+
+        dp, tp = (int(x) for x in args.mesh.split(","))
+        # every visible card (raises with fewer than dp*tp), or the CPU repeated
+        mesh = make_mesh(None if args.device == "cuda" else [args.device] * (dp * tp),
+                         dp=dp, tp=tp)
+        pipeline = ShardedServingPipeline(SOMPipeline(cfg, mesh.row_device(0)), mesh)
     server = OmniparserServer(cfg, ServerConfig(host=args.host, port=args.port),
-                              device=args.device)
+                              pipeline=pipeline, device=args.device)
     server.pipeline.warmup()  # the kernels' build and first launches, before any request
     server.serve_forever()
 

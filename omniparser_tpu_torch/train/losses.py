@@ -14,7 +14,7 @@ Boxes are normalised xyxy.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +73,31 @@ def detection_loss(
     cls_weight: float = 0.5,
     dfl_weight: float = 1.5,
 ) -> torch.Tensor:
+    cls, box, dfl, positive = _detection_terms(level_outputs, gt_boxes, gt_mask, imgsz)
+    npos = positive.sum() + 1e-6
+    return (box_weight * (box.sum() / npos) + cls_weight * cls.mean()
+            + dfl_weight * (dfl.sum() / npos))
+
+
+def detection_loss_sums(level_outputs, gt_boxes, gt_mask, imgsz: int) -> Dict[str, torch.Tensor]:
+    """The sums and counts ``detection_loss`` divides, so that data-parallel
+    shards can add theirs before dividing: the BCE sum and element count,
+    the CIoU and DFL sums over positives, and the positive count."""
+    cls, box, dfl, positive = _detection_terms(level_outputs, gt_boxes, gt_mask, imgsz)
+    return {"cls": cls.sum(), "cls_n": torch.full((), float(cls.numel()), device=cls.device),
+            "box": box.sum(), "dfl": dfl.sum(), "pos": positive.sum().float()}
+
+
+def detection_loss_from_sums(sums: Dict[str, torch.Tensor], box_weight: float = 7.5,
+                             cls_weight: float = 0.5, dfl_weight: float = 1.5) -> torch.Tensor:
+    npos = sums["pos"] + 1e-6
+    return (box_weight * (sums["box"] / npos) + cls_weight * (sums["cls"] / sums["cls_n"])
+            + dfl_weight * (sums["dfl"] / npos))
+
+
+def _detection_terms(level_outputs, gt_boxes, gt_mask, imgsz: int):
+    """(elementwise class BCE [B,A,nc], 1 - CIoU [B,A] and DFL [B,A] at the
+    positive anchors and 0 elsewhere, positive [B,A])."""
     b = gt_boxes.shape[0]
     dev = gt_boxes.device
     centers, stride = _anchor_centers(imgsz, dev)  # [A, 2], [A]
@@ -102,7 +127,7 @@ def detection_loss(
 
     # --- cls BCE (single class: objectness-style) ---
     cls_tgt = positive.float()[..., None].expand_as(cls_logits)
-    cls_l = optax_sigmoid_bce(cls_logits, cls_tgt).mean()
+    cls_l = optax_sigmoid_bce(cls_logits, cls_tgt)
 
     # --- box: CIoU on decoded positives ---
     bins = torch.arange(REG_MAX, dtype=torch.float32, device=dev)
@@ -110,9 +135,8 @@ def detection_loss(
     dist_n = dist * stride[None, :, None] / imgsz  # normalised units
     pred = torch.stack([cx[None] - dist_n[..., 0], cy[None] - dist_n[..., 1],
                         cx[None] + dist_n[..., 2], cy[None] + dist_n[..., 3]], dim=-1)
-    npos = positive.sum() + 1e-6
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    box_l = torch.where(positive, 1.0 - _ciou(pred, tgt), zero).sum() / npos
+    box_l = torch.where(positive, 1.0 - _ciou(pred, tgt), zero)
 
     # --- DFL: CE to the two bins adjacent to the target distance ---
     tgt_ltrb = torch.stack([cx[None] - tgt[..., 0], cy[None] - tgt[..., 1],
@@ -125,9 +149,8 @@ def detection_loss(
     ce_lo = -torch.gather(logp, -1, lo_i[..., None])[..., 0]
     ce_hi = -torch.gather(logp, -1, (lo_i + 1)[..., None])[..., 0]
     dfl = (ce_lo * wl + ce_hi * (1 - wl)).mean(-1)
-    dfl_l = torch.where(positive, dfl, zero).sum() / npos
-
-    return box_weight * box_l + cls_weight * cls_l + dfl_weight * dfl_l
+    dfl_l = torch.where(positive, dfl, zero)
+    return cls_l, box_l, dfl_l, positive
 
 
 def optax_sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -139,7 +162,14 @@ def optax_sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
 
 def caption_loss(logits: torch.Tensor, labels: torch.Tensor, pad_id: int = 1) -> torch.Tensor:
     """Teacher-forced CE over non-pad targets: logits [B,T,V], labels [B,T]."""
+    nll, n = caption_loss_sums(logits, labels, pad_id)
+    return nll / torch.clamp(n, min=1.0)
+
+
+def caption_loss_sums(logits: torch.Tensor, labels: torch.Tensor, pad_id: int = 1):
+    """(the summed NLL of the non-pad targets, their count): what
+    ``caption_loss`` divides."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     mask = (labels != pad_id).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum(), mask.sum()

@@ -17,14 +17,21 @@ metrics, where the JAX step returns new parameters and optimiser state.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import threading
 from typing import Dict, Optional
 
 import torch
 
 from omniparser_tpu_torch.models.florence2 import Florence2, FlorenceDims
+from omniparser_tpu_torch.models.norm import ShardAllReduce, dp_shard
 from omniparser_tpu_torch.models.yolov8 import YOLOv8, Detector
-from omniparser_tpu_torch.train.losses import caption_loss, detection_loss
+from omniparser_tpu_torch.parallel.mesh import (
+    batch_sharding, module_device, same_device, shard_params_fsdp_tp)
+from omniparser_tpu_torch.train.losses import (
+    caption_loss, caption_loss_sums, detection_loss, detection_loss_from_sums,
+    detection_loss_sums)
 from omniparser_tpu_torch.train.optim import AdamW
 from omniparser_tpu_torch.utils.device import resolve_device
 from omniparser_tpu_torch.weights.init import flax_init_
@@ -126,18 +133,25 @@ def make_synthetic_batch(generator: torch.Generator, batch: int, imgsz: int, max
     }
 
 
+def _forward(det_module: YOLOv8, florence: Florence2, batch, dtype: torch.dtype):
+    """Both networks over `batch`: (the detector's level outputs, the
+    teacher-forced caption logits)."""
+    dev = batch["images"].device
+    with compute_autocast(dev, dtype):
+        outs = det_module(batch["images"].permute(0, 3, 1, 2))
+    ids = batch["caption_ids"]
+    dec_in = torch.cat([torch.full_like(ids[:, :1], 2), ids[:, :-1]], dim=1)
+    with compute_autocast(dev, dtype):
+        logits = florence(batch["crops"], batch["prompt_ids"], dec_in)
+    return outs, logits
+
+
 def loss_fn(state: TrainState, batch):
     """(total, detection, caption) losses of `batch`; the detector in
     train mode updates its running statistics."""
-    dev = batch["images"].device
-    with compute_autocast(dev, state.dtype):
-        outs = state.det_module(batch["images"].permute(0, 3, 1, 2))
+    outs, logits = _forward(state.det_module, state.florence, batch, state.dtype)
     det_l = detection_loss(outs, batch["gt_boxes"], batch["gt_mask"], state.imgsz)
-    ids = batch["caption_ids"]
-    dec_in = torch.cat([torch.full_like(ids[:, :1], 2), ids[:, :-1]], dim=1)
-    with compute_autocast(dev, state.dtype):
-        logits = state.florence(batch["crops"], batch["prompt_ids"], dec_in)
-    cap_l = caption_loss(logits, ids)
+    cap_l = caption_loss(logits, batch["caption_ids"])
     return det_l + cap_l, det_l, cap_l
 
 
@@ -154,7 +168,138 @@ def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
 
 
 def make_sharded_train_step(state: TrainState, mesh):
-    """The JAX package jits the step over a ('dp', 'tp') mesh; this
-    package has no multi-device path yet."""
-    raise NotImplementedError(
-        "make_sharded_train_step: multi-device training is not ported (ROADMAP A.10)")
+    """``train_step`` over a ('dp', 'tp') mesh (``parallel/mesh.py``):
+    returns ``step(batch) -> metrics``, which updates `state` in place and
+    equals ``train_step(state, batch)`` on the whole batch.
+
+    One process drives the mesh.  Each dp row's contiguous shard of the
+    batch runs its forward on a thread of its own; train-mode BatchNorm
+    takes its statistics from every shard through a barrier all-reduce
+    (``models/norm.dp_shard``) and updates the running statistics once,
+    with the global values; each shard returns loss sums and counts, and
+    the loss is their quotient on the first row's device, so the box and
+    DFL terms divide by the global positive count and the caption term by
+    the global count of non-pad tokens.  One ``backward()`` reaches every
+    shard.  Rows on one device share its networks, so autograd sums their
+    gradients; a row on another device gets copies, whose gradients are
+    summed onto the state's before the one AdamW step, and which get the
+    new parameters and statistics back after it.  With tp > 1 Florence-2's
+    large parameters are split over each row's tp devices in place
+    (``shard_params_fsdp_tp``, gather on use; the optimiser's moments are
+    split with them), as the JAX step shards the captioner's parameters.
+    The state's networks must lie on the mesh's first row device.
+    """
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    home = module_device(state.det_module)
+    if not same_device(home, mesh.row_device(0)):
+        raise ValueError(f"the state's networks lie on {home}, the mesh's first row "
+                         f"computes on {mesh.row_device(0)}")
+    nets, rows = [(state.det_module, state.florence, 0)], []
+    for r in range(dp):
+        dev = mesh.row_device(r)
+        i = next((i for i, (d, _, _) in enumerate(nets)
+                  if same_device(module_device(d), dev)), None)
+        if i is None:
+            nets.append((copy.deepcopy(state.det_module).to(dev),
+                         copy.deepcopy(state.florence).to(dev), r))
+            i = len(nets) - 1
+        rows.append(nets[i])
+    if tp > 1:
+        before = dict(state.florence.named_parameters())
+        for _, florence, r in nets:
+            leaves = shard_params_fsdp_tp(florence, mesh, row=r)
+        state.optimizer = _split_optimizer(state.optimizer, state.florence, leaves, before, tp)
+    sums_keys = ("cls", "cls_n", "box", "dfl", "pos", "nll", "tokens")
+
+    def shard_sums(r: int, part, reducer, out, errors):
+        det_module, florence, _ = rows[r]
+        try:
+            with dp_shard(reducer, r):
+                outs, logits = _forward(det_module, florence, part, state.dtype)
+                sums = detection_loss_sums(outs, part["gt_boxes"], part["gt_mask"], state.imgsz)
+                sums["nll"], sums["tokens"] = caption_loss_sums(logits, part["caption_ids"])
+            out[r] = sums
+        except BaseException as e:  # noqa: BLE001 - handed to the caller's thread
+            errors.append(e)
+            reducer.abort()
+
+    def step(batch) -> Dict[str, torch.Tensor]:
+        parts = {k: batch_sharding(mesh).shard(v) for k, v in batch.items()}
+        for det_module, florence, _ in nets:
+            det_module.train()
+            florence.train()
+            det_module.zero_grad(set_to_none=True)
+            florence.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad()
+        reducer, out, errors = ShardAllReduce(dp), [None] * dp, []
+        threads = [threading.Thread(target=shard_sums,
+                                    args=(r, {k: v[r] for k, v in parts.items()},
+                                          reducer, out, errors))
+                   for r in range(dp)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                       errors[0])
+        first = mesh.row_device(0)
+        tot = {k: sum(o[k].to(first) for o in out) for k in sums_keys}
+        det_l = detection_loss_from_sums(tot)
+        cap_l = tot["nll"] / torch.clamp(tot["tokens"], min=1.0)
+        loss = det_l + cap_l
+        loss.backward()
+        with torch.no_grad():
+            for det_module, florence, _ in nets[1:]:  # copies on other devices
+                for mine, theirs in ((state.det_module, det_module), (state.florence, florence)):
+                    got = dict(theirs.named_parameters())
+                    for name, p in mine.named_parameters():
+                        g = got[name].grad
+                        if g is not None:
+                            p.grad = g.to(p.device) if p.grad is None else p.grad + g.to(p.device)
+        state.optimizer.step()
+        with torch.no_grad():
+            for det_module, florence, _ in nets[1:]:
+                for mine, theirs in ((state.det_module, det_module), (state.florence, florence)):
+                    dst = dict(theirs.state_dict(keep_vars=True))
+                    for name, t in mine.state_dict(keep_vars=True).items():
+                        dst[name].copy_(t)
+        return {"loss": loss.detach(), "det_loss": det_l.detach(), "cap_loss": cap_l.detach()}
+
+    return step
+
+
+def _split_optimizer(opt: AdamW, module: torch.nn.Module, leaves: Dict[str, int],
+                     before: Dict[str, torch.nn.Parameter], tp: int) -> AdamW:
+    """`opt` over `module`'s parameters after ``shard_params_fsdp_tp``
+    split `leaves` (names that were parameters in `before`): each split
+    parameter's place goes to its shards, and its moments are split the
+    same way (Adam is elementwise, so the step is the same)."""
+    shards = {}
+    for name, dim in leaves.items():
+        owner, _, leaf = name.rpartition(".")
+        plist = module.get_submodule(owner).parametrizations[leaf]
+        shards[id(before[name])] = ([getattr(plist, f"original{i}") for i in range(tp)], dim)
+    params = []
+    for p in opt.params:
+        params += shards.get(id(p), ([p], 0))[0]
+    group = opt.opt.param_groups[0]
+    new = AdamW(params, opt.schedule, weight_decay=group["weight_decay"],
+                clip_norm=opt.clip_norm, b1=group["betas"][0], b2=group["betas"][1],
+                eps=group["eps"])
+    new.count = opt.count
+    for p in opt.params:
+        st = opt.opt.state.get(p)
+        if not st:
+            continue
+        if id(p) not in shards:
+            new.opt.state[p] = st
+            continue
+        parts, dim = shards[id(p)]
+        for i, s in enumerate(parts):
+            new.opt.state[s] = {
+                k: (v.chunk(tp, dim)[i].contiguous().to(s.device, copy=True)
+                    if torch.is_tensor(v) and v.shape == p.shape else
+                    (v.clone() if torch.is_tensor(v) else v))
+                for k, v in st.items()}
+    return new

@@ -133,8 +133,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         OmniparserServer(cfg)  # no pipeline given: it builds one, on the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--port", "0"])  # --device defaults to cuda
-    with pytest.raises(NotImplementedError, match="A.10"):
-        main(["--mesh", "4,2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--mesh", "4,2"])  # the mesh's devices default to every visible card
 
 
 def test_family_entry_points_default_to_the_card_and_raise_without_one():

@@ -264,3 +264,46 @@ def test_synth_bench_run_matches_jax(pipelines, tmp_path):
         if a["pred"] is not None:
             np.testing.assert_allclose(a["pred"], b["pred"], rtol=0, atol=1.0 / 640)
     assert sum(r["pred"] is not None for r in rows[0]) >= 3, "too few rows grounded"
+
+
+def test_single_step_decode_matches_jax(rng):
+    """split_decode=False: the fused step decodes all K caption slots before
+    the download, as the JAX package's FusedParseStep does inside its graph
+    (its own tests never run this path).  Against the JAX SOMPipeline with
+    the same weights at tiny widths, float32: caption tokens exact, mean
+    log-probs within 1e-5, then parse_image's elements; the port's split
+    path gives the same elements, and warm-up decodes no bucket."""
+    import dataclasses
+
+    from tests.test_torch_sharded_parse import same_elements, tiny_pair
+
+    jp, tp = tiny_pair(split_decode=False)
+    k = tp.config.captioner.batch_size
+    split = SOMPipeline(dataclasses.replace(tp.config, captioner=dataclasses.replace(
+        tp.config.captioner, split_decode=True)), device="cpu", det_module=tp.det_module,
+        captioner=tp.captioner)
+    captions = []
+    for img in [rng.integers(0, 255, (100, 120, 3), dtype=np.uint8) for _ in range(2)]:
+        jctx = jp._stage_upload(img)
+        jp._stage_ocr(jctx)
+        jp._stage_dispatch(jctx, None, None)
+        want = jax.device_get(jctx["out"])
+        ctx = tp._stage_upload(img)
+        tp._stage_ocr(ctx)
+        assert tp._stage_dispatch(ctx, None, None) is None  # no crops leave the step
+        tp._download(ctx)
+        got = ctx["out"]
+        assert got["cap_tokens"].shape == (k, tp.config.captioner.max_new_tokens)
+        for key in ("cap_valid", "cap_src", "cap_tokens"):
+            np.testing.assert_array_equal(got[key], np.asarray(want[key]))
+        np.testing.assert_allclose(got["cap_logp"], np.asarray(want["cap_logp"]), rtol=0, atol=1e-5)
+        _, _, j_el = jp.parse_image(img)
+        _, _, t_el = tp.parse_image(img)
+        same_elements(t_el, j_el)
+        assert tp.last_counts["kb"] == k
+        assert split.parse_image(img)[2] == t_el
+        captions += [e["content"] for e in t_el if e["source"] == "box_yolo_content_yolo"]
+    assert len(captions) >= 4 and len(set(captions)) >= 2
+    calls = tp.captioner.generate_calls
+    tp.warmup(shapes=((100, 120),))
+    assert tp.captioner.generate_calls - calls == 1  # the blank parse's own decode

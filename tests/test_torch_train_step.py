@@ -169,8 +169,10 @@ def test_synthetic_batch_and_fast_init():
     st = tts.make_train_state(imgsz=IMGSZ, fast_init=True, device="cpu", dtype=torch.float32)
     assert float(st.det_module.stem.bn.running_var.min()) == 1.0
     assert np.isfinite(tts.train_step(st, b)["loss"].item())
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tts.make_sharded_train_step(st, None)
+    from omniparser_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="not a multiple of dp"):
+        tts.make_sharded_train_step(st, make_mesh(["cpu"] * 4, dp=4))(b)
 
 
 @pytest.mark.parametrize("family", ["yolov8", "florence2"])
