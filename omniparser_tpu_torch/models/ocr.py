@@ -322,6 +322,35 @@ def merge_paragraphs(texts: List[str], boxes: List[List[int]], y_gap: float = 0.
     return [out_texts[g] for g in order], [out_boxes[g] for g in order]
 
 
+def unclip_component_boxes(comps: List[Tuple[Tuple[int, int, int, int], float]],
+                           unclip: float = 2.0, scale: int = 2
+                           ) -> List[Tuple[List[int], float]]:
+    """Component boxes at det-map scale -> unclipped boxes in map*scale px.
+    The unclip margin inverts the capped shrink of
+    ``train/synth_text.shrink_map``."""
+    out = []
+    for (x1c, y1c, x2c, y2c), score in comps:
+        margin = (unclip - 1.0) * min(x2c - x1c, y2c - y1c) / 2
+        out.append(([int(round((x1c - margin) * scale)), int(round((y1c - margin) * scale)),
+                     int(round((x2c + margin) * scale)), int(round((y2c + margin) * scale))],
+                    score))
+    return out
+
+
+def extract_text_boxes(prob_map: np.ndarray, bin_threshold: float = 0.3,
+                       min_score: float = 0.3, unclip: float = 2.0, min_area: int = 4,
+                       scale: int = 2) -> List[Tuple[List[int], float]]:
+    """Probability map (det scale) -> [(x1,y1,x2,y2 in map*scale px, score)]:
+    binarise, connected components on the host (``utils/hostops``' native
+    library), unclip.  ``scale`` is ``TextDetector``'s output stride; the
+    device form of the same postprocess is ``ops/components``."""
+    from omniparser_tpu_torch.utils.hostops import extract_components
+
+    comps = [(box, score) for box, score, _area in
+             extract_components(prob_map, bin_threshold, min_area, min_score)]
+    return unclip_component_boxes(comps, unclip, scale)
+
+
 class TorchOCR:
     """The device OCR backend: both nets, the fused letterbox + detector +
     components step, and the recogniser's preprocessing.

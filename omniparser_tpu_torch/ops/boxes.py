@@ -17,6 +17,31 @@ def box_area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
+def box_cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+
+
+def box_xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
+
+
+def box_xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
+
+
+def box_xywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    x, y, w, h = boxes.unbind(-1)
+    return torch.stack([x, y, x + w, y + h], dim=-1)
+
+
+def box_cxcywh_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, w, h], dim=-1)
+
+
 def pairwise_intersection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Intersection areas between all pairs: a [N,4], b [M,4] -> [N,M].
     Per-axis overlaps are clamped to 0 independently."""
@@ -24,6 +49,12 @@ def pairwise_intersection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
     wh = torch.clamp(rb - lt, min=0.0)
     return wh[..., 0] * wh[..., 1]
+
+
+def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain IoU matrix [N,M] with the reference's +1e-6 union epsilon."""
+    inter = pairwise_intersection(a, b)
+    return inter / (box_area(a)[:, None] + box_area(b)[None, :] - inter + _UNION_EPS)
 
 
 def pairwise_max_overlap_ratio(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

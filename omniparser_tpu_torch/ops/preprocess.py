@@ -18,6 +18,15 @@ import torch
 LETTERBOX_FILL = 114.0
 
 
+def pick_bucket(h: int, w: int, buckets: Tuple[int, ...]) -> int:
+    """Smallest bucket that fits the longer side; else the largest bucket."""
+    longest = max(h, w)
+    for b in sorted(buckets):
+        if longest <= b:
+            return b
+    return max(buckets)
+
+
 def pick_bucket_2d(h: int, w: int, step: int = 128, max_side: int = 8192) -> Tuple[int, int]:
     """Per-axis static bucket: round each dim up to a multiple of `step`."""
     hb = min(-(-h // step) * step, max_side)

@@ -18,8 +18,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from omniparser_tpu_torch.train.synth_text import (_FONT_FILES, _font, matplotlib_font_dir,
-                                                   pick_font, require_fonts, sample_text)
+from omniparser_tpu_torch.train.synth_text import (CARRIED_FONT_DIR, _FONT_FILES, _font,
+                                                   matplotlib_font_dir, pick_font,
+                                                   require_fonts, sample_text)
 
 # bump to invalidate /tmp training-data caches when generators change
 DATA_VERSION = 21
@@ -94,12 +95,13 @@ def _italic_font(size: int):
     """A slanted face for the italic-button glyph (real toolbar italics
     are oblique; an upright 'I' reads as a bar/digit in blurry crops).
     DejaVu ships no Oblique in the system dir — fall back to
-    matplotlib's bundled mpl-data faces, then upright."""
+    matplotlib's bundled mpl-data faces (the carried copy of them where
+    matplotlib is absent), then upright."""
     import os
 
     candidates = [f for f in _FONT_FILES
                   if "Oblique" in f or "Italic" in f]
-    mdir = matplotlib_font_dir()
+    mdir = matplotlib_font_dir() or os.path.join(CARRIED_FONT_DIR, "matplotlib")
     if not candidates and mdir is not None:
         for name in ("DejaVuSerif-Italic.ttf", "DejaVuSans-Oblique.ttf"):
             p = os.path.join(mdir, name)

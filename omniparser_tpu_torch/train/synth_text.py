@@ -5,8 +5,12 @@ so that the port renders the same scenes without importing JAX.
 Everything is seeded: the same generator state gives the same pixels as
 the JAX package's renderer on the same machine (the font set is globbed
 from ``/usr/share/fonts`` and matplotlib's bundled faces, so two machines
-with other fonts render other pixels).  A machine with no TTF face
-imports this module but raises at the first render.  The trainers' half
+with other fonts render other pixels).  A machine where the globs find
+nothing reads the set that ``carry_fonts`` copied, with its order, weights
+and bans, from ``weights/exported/fonts/``
+(``scripts/export_torch_weights.py`` writes it; a Pillow without libraqm
+still lays text out otherwise); with neither, this module imports but
+raises at the first render.  The trainers' half
 (``render_line_buffers``, ``crops_from_buffers``, ``render_lines_to_crops``,
 ``shrink_map``) follows the renderers; ``crops_from_buffers`` runs the
 inference crop-gather (K3's line grid on the card).
@@ -123,10 +127,21 @@ def encode_text(text: str, max_len: int) -> np.ndarray:
 
 # ----------------------------- line rendering ---------------------------- #
 
+# where the renderers find faces: the system's TTFs and matplotlib's bundled
+# ones; a machine with neither reads the faces that
+# scripts/export_torch_weights.py copies beside the exported weights
+SYSTEM_FONT_DIR = "/usr/share/fonts"
+CARRIED_FONT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "weights", "exported", "fonts")
+FONT_MANIFEST = "fonts.json"
+
 # chars a font's TTF cmap maps to TeX glyphs instead of ASCII (verified
 # by rendering: cmss10/cmr10 draw <>|\{} as upside-down-!/dashes/quotes);
 # render_line re-picks a DejaVu face when the text needs a banned char
-_FONT_BAN = {}
+_TEX_BAN = frozenset("<>|\\{}")
+
+# one face of the set: (path, repeat weight, banned chars, 'system' or 'matplotlib')
+FontEntry = Tuple[str, int, frozenset, str]
 
 
 def matplotlib_font_dir() -> Optional[str]:
@@ -138,8 +153,12 @@ def matplotlib_font_dir() -> Optional[str]:
     return os.path.join(spec.submodule_search_locations[0], "mpl-data") + "/fonts/ttf"
 
 
-def _collect_fonts():
-    files = sorted(glob.glob("/usr/share/fonts/**/*.ttf", recursive=True))
+def glob_fonts() -> List[FontEntry]:
+    """The font set this machine's globs find, in render order: the system
+    faces first (``pick_font`` re-picks among the first six), then
+    matplotlib's."""
+    entries = [(f, 1, frozenset(), "system") for f in
+               sorted(glob.glob(SYSTEM_FONT_DIR + "/**/*.ttf", recursive=True))]
     # matplotlib bundles STIX (full-Unicode serif), DejaVu oblique faces,
     # and the Computer Modern TTFs.  cmss10 matters most: its lowercase
     # 'g' is SINGLE-STORY like Segoe UI / SF — recognizers trained on
@@ -148,7 +167,7 @@ def _collect_fonts():
     # that reason.
     mpl = matplotlib_font_dir()
     if mpl is None:  # no matplotlib: the system faces alone
-        return files
+        return entries
     for f in sorted(glob.glob(mpl + "/*.ttf")):
         name = f.rsplit("/", 1)[-1]
         if "Sym" in name or "NonUni" in name or "Display" in name:
@@ -156,28 +175,81 @@ def _collect_fonts():
             # zero height; drawing produces no ink)
             continue
         if name.startswith(("STIXGeneral", "DejaVu")):
-            files.append(f)
-    tex_ban = frozenset("<>|\\{}")
-    for name, ban, weight in (("cmss10.ttf", tex_ban, 4),
+            entries.append((f, 1, frozenset(), "matplotlib"))
+    for name, ban, weight in (("cmss10.ttf", _TEX_BAN, 4),
                               ("cmtt10.ttf", frozenset(), 1),
-                              ("cmr10.ttf", tex_ban, 1)):
+                              ("cmr10.ttf", _TEX_BAN, 1)):
         path = f"{mpl}/{name}"
         if os.path.exists(path):
-            if ban:
-                _FONT_BAN[path] = ban
-            files.extend([path] * weight)
-    return files
+            entries.append((path, weight, ban, "matplotlib"))
+    return entries
 
 
-_FONT_FILES = _collect_fonts()
-_FONT_DIRS = ("/usr/share/fonts/**/*.ttf", "matplotlib's mpl-data/fonts/ttf")
+def carried_fonts(root: str = CARRIED_FONT_DIR) -> List[FontEntry]:
+    """The font set ``carry_fonts`` copied into `root`, read from its
+    manifest in its order, or [] where there is no manifest."""
+    import json
+
+    manifest = os.path.join(root, FONT_MANIFEST)
+    if not os.path.exists(manifest):
+        return []
+    with open(manifest) as f:
+        fonts = sorted(json.load(f)["fonts"], key=lambda e: e["order"])
+    return [(os.path.join(root, e["file"]), int(e["weight"]), frozenset(e["ban"]), e["half"])
+            for e in fonts]
+
+
+def carry_fonts(dest: str = CARRIED_FONT_DIR) -> List[FontEntry]:
+    """Copy the globbed font set into `dest` (``system/`` and
+    ``matplotlib/``: the two halves hold faces of the same name) with a
+    manifest of each face's order, repeat weight, banned chars and half,
+    so a machine without the faces renders from the same set.  Returns the
+    set as ``carried_fonts`` reads it back; raises where the globs find
+    nothing."""
+    import json
+    import shutil
+
+    entries = glob_fonts()
+    if not entries:
+        raise RuntimeError("no TTF font found to carry; searched " + " and ".join(_font_dirs()))
+    fonts = []
+    for order, (path, weight, ban, half) in enumerate(entries):
+        rel = os.path.join(half, os.path.relpath(path, SYSTEM_FONT_DIR) if half == "system"
+                           else os.path.basename(path))
+        os.makedirs(os.path.dirname(os.path.join(dest, rel)), exist_ok=True)
+        shutil.copyfile(path, os.path.join(dest, rel))
+        fonts.append({"order": order, "file": rel, "weight": weight,
+                      "ban": "".join(sorted(ban)), "half": half})
+    with open(os.path.join(dest, FONT_MANIFEST), "w") as f:
+        json.dump({"fonts": fonts}, f, indent=1)
+    return carried_fonts(dest)
+
+
+def _collect_fonts(root: str = CARRIED_FONT_DIR):
+    """(font files in render order with repeats, {path: banned chars}):
+    the globbed set, else the carried one."""
+    files, ban = [], {}
+    for path, weight, chars, _half in glob_fonts() or carried_fonts(root):
+        if chars:
+            ban[path] = chars
+        files.extend([path] * weight)
+    return files, ban
+
+
+_FONT_FILES, _FONT_BAN = _collect_fonts()
+
+
+def _font_dirs() -> Tuple[str, ...]:
+    return (SYSTEM_FONT_DIR + "/**/*.ttf", "matplotlib's mpl-data/fonts/ttf",
+            os.path.join(CARRIED_FONT_DIR, FONT_MANIFEST)
+            + " (written by scripts/export_torch_weights.py)")
 
 
 def require_fonts() -> None:
     """Raise where no TTF face was found (the renderers index the set)."""
     if not _FONT_FILES:
         raise RuntimeError("no TTF font found to render text with; searched "
-                           + " and ".join(_FONT_DIRS))
+                           + " and ".join(_font_dirs()))
 
 
 @lru_cache(maxsize=256)

@@ -31,12 +31,13 @@ import json
 import os
 import tempfile
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from omniparser_tpu_torch.models.ocr import TextDetector, TextRecognizer, ctc_greedy_decode
+from omniparser_tpu_torch.models.ocr import (TextDetector, TextRecognizer, ctc_greedy_decode,
+                                             extract_text_boxes)
 from omniparser_tpu_torch.train.data import (
     apply_augment,
     augment_draws,
@@ -292,21 +293,6 @@ def train_detector(steps: int = 1500, batch: int = 8, lr: float = 5e-4, seed: in
     return det.eval()
 
 
-def _extract_text_boxes(prob_map: np.ndarray, unclip: float = 2.0, scale: int = 2
-                        ) -> List[Tuple[List[int], float]]:
-    """Map-scale components (host, ``utils/hostops``) -> unclipped boxes in
-    map*scale pixels: the JAX package's ``extract_text_boxes``."""
-    from omniparser_tpu_torch.utils.hostops import extract_components
-
-    out = []
-    for (x1c, y1c, x2c, y2c), score, _area in extract_components(prob_map, 0.3, 4, 0.3):
-        margin = (unclip - 1.0) * min(x2c - x1c, y2c - y1c) / 2
-        out.append(([int(round((x1c - margin) * scale)), int(round((y1c - margin) * scale)),
-                     int(round((x2c + margin) * scale)), int(round((y2c + margin) * scale))],
-                    score))
-    return out
-
-
 def evaluate_detector(det: TextDetector, n: int = 16, seed: int = 9100,
                       device="cuda") -> Dict[str, float]:
     """Box recall and precision of the detector's postprocess (prob map ->
@@ -320,7 +306,7 @@ def evaluate_detector(det: TextDetector, n: int = 16, seed: int = 9100,
         x = torch.from_numpy(img[None]).to(dev).float() / 255.0
         with torch.no_grad():
             prob = det(x.permute(0, 3, 1, 2))[0, 0].float().cpu().numpy()
-        cands = [b for b, _s in _extract_text_boxes(prob)]
+        cands = [b for b, _s in extract_text_boxes(prob)]
         matched = [False] * len(cands)
         for g in gts:
             best, best_i = 0.0, -1

@@ -65,6 +65,16 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the native library builds and loads on this machine (where
+    it does not, ``extract_components(impl='native')`` raises)."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def extract_components(prob: np.ndarray, threshold: float, min_area: int, min_score: float,
                        max_out: int = 1024, impl: str = "native") -> List[Component]:
     """4-connected components of (prob > threshold), in the raster order of

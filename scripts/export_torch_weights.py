@@ -13,6 +13,14 @@ captioner's ``__dims__`` JSON).  The default directory,
 are never committed.  ``omniparser_tpu_torch.SOMPipeline`` picks them up
 when its weight fields are 'auto', and converts them with
 ``omniparser_tpu_torch/weights/convert.py`` at load.
+
+It also copies this machine's TTF faces (``/usr/share/fonts`` and
+matplotlib's, as ``train/synth_text.glob_fonts`` finds them) into
+``fonts/`` beside the weights, with a ``fonts.json`` of each face's order,
+repeat weight, banned characters and half (``system/`` or
+``matplotlib/``), so that a machine with no face renders from the same
+set (``synth_text.carried_fonts``): the same scenes where its Pillow lays
+text out as this machine's does.
 """
 
 from __future__ import annotations
@@ -33,6 +41,11 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.join(ROOT, "omniparser_tpu_torch", "weights",
                                                   "exported"))
     args = ap.parse_args()
+
+    from omniparser_tpu_torch.train.synth_text import carry_fonts
+
+    fonts = carry_fonts(os.path.join(args.out, "fonts"))
+    print("fonts", len(fonts), "faces,", sum(e[1] for e in fonts), "entries with repeats")
 
     import jax
 

@@ -148,6 +148,135 @@ def test_no_fonts_raises_at_the_first_render(monkeypatch):
         synth_text.render_line(np.random.default_rng(0))
 
 
+# --------------------------- the carried faces --------------------------- #
+
+
+@pytest.fixture(scope="module")
+def carried(tmp_path_factory):
+    """The export script's font copy in a temporary directory, and the set
+    the renderers read from it where the globs find nothing and matplotlib
+    is absent: (directory, files, bans)."""
+    import glob
+
+    from omniparser_tpu_torch.train import synth_text
+
+    root = str(tmp_path_factory.mktemp("exported") / "fonts")
+    synth_text.carry_fonts(root)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(glob, "glob", lambda *a, **k: [])
+    mp.setattr(synth_text, "matplotlib_font_dir", lambda: None)
+    try:
+        assert synth_text.glob_fonts() == []
+        files, ban = synth_text._collect_fonts(root)
+    finally:
+        mp.undo()
+    return root, files, ban
+
+
+def _use_fonts(monkeypatch, files, ban):
+    from omniparser_tpu_torch.train import synth_text
+
+    monkeypatch.setattr(synth_text, "_FONT_FILES", files)
+    monkeypatch.setattr(synth_text, "_FONT_BAN", ban)
+    monkeypatch.setattr(tgui, "_FONT_FILES", files)
+
+
+def test_carried_manifest_keeps_order_weights_bans_and_halves(carried):
+    from omniparser_tpu_torch.train import synth_text
+
+    root, files, ban = carried
+    with open(f"{root}/fonts.json") as f:
+        fonts = json.load(f)["fonts"]
+    globbed = synth_text.glob_fonts()
+    assert [e["order"] for e in fonts] == list(range(len(globbed)))
+    assert [(e["weight"], frozenset(e["ban"]), e["half"]) for e in fonts] == \
+        [(w, b, h) for _, w, b, h in globbed]
+    assert [e["half"] for e in fonts[:6]] == ["system"] * 6  # pick_font's re-pick set
+    names = [f.rsplit("/", 1)[-1] for f in files]
+    assert names == [f.rsplit("/", 1)[-1] for f in synth_text._FONT_FILES]
+    assert names.count("cmss10.ttf") == 4
+    # the two halves hold faces of the same name, in their own directories
+    assert len({f for f in files if f.endswith("/DejaVuSans-Bold.ttf")}) == 2
+    assert sorted(p.rsplit("/", 1)[-1] for p in ban) == ["cmr10.ttf", "cmss10.ttf"]
+    assert all(p.startswith(root) for p in ban)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 777100])
+def test_carried_fonts_render_bit_equal(seed, carried, monkeypatch):
+    """render_gui_scene and render_line (a text with banned characters
+    among them) from the carried set, read with the globs finding nothing,
+    equal the globbed set's renders."""
+    from omniparser_tpu_torch.train import synth_text
+
+    texts = (None, "a<b>{c}|d\\e", "Save As")
+    want = [tgui.render_gui_scene(np.random.default_rng(seed), size=320, return_kinds=True)]
+    want += [synth_text.render_line(np.random.default_rng(seed + i), t)
+             for i, t in enumerate(texts)]
+    _, files, ban = carried
+    _use_fonts(monkeypatch, files, ban)
+    got = [tgui.render_gui_scene(np.random.default_rng(seed), size=320, return_kinds=True)]
+    got += [synth_text.render_line(np.random.default_rng(seed + i), t)
+            for i, t in enumerate(texts)]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1:] == b[1:]
+
+
+def test_carried_ban_repicks_the_same_face(carried, monkeypatch):
+    """A text with a banned character re-picks among the six system faces
+    from the carried set as from the globbed one."""
+    from omniparser_tpu_torch.train import synth_text
+
+    text = "C:\\Users\\{me}"
+    name = lambda f: f.path.rsplit("/", 1)[-1]
+    want = [name(synth_text.pick_font(np.random.default_rng(s), text, 14)) for s in range(64)]
+    _, files, ban = carried
+    _use_fonts(monkeypatch, files, ban)
+    got = [synth_text.pick_font(np.random.default_rng(s), text, 14) for s in range(64)]
+    assert [name(f) for f in got] == want
+    assert "cmss10.ttf" not in want and len(set(want)) > 1
+    # the first draw landed on a banned face for some seeds: the re-pick ran
+    first = [files[int(np.random.default_rng(s).integers(0, len(files)))] for s in range(64)]
+    assert any(f in ban for f in first)
+
+
+def test_carried_italic_glyph_without_matplotlib(carried, monkeypatch):
+    """With no oblique face in the set the italic glyph falls back to
+    matplotlib's faces; where matplotlib is absent, to the carried half."""
+    from PIL import Image, ImageDraw
+
+    from omniparser_tpu_torch.train import synth_text
+
+    root, files, _ = carried
+
+    def glyph():
+        img = Image.new("RGB", (40, 40), (255, 255, 255))
+        tgui._draw_icon(ImageDraw.Draw(img), np.random.default_rng(3), 4, 4, 32, (0, 0, 0),
+                        (255, 255, 255), kind="italic")
+        return np.asarray(img), tgui._italic_font(30).path.rsplit("/", 2)[-2:]
+
+    monkeypatch.setattr(tgui, "_FONT_FILES", list(synth_text._FONT_FILES[:6]))
+    want, want_face = glyph()
+    monkeypatch.setattr(tgui, "_FONT_FILES", files[:6])
+    monkeypatch.setattr(tgui, "matplotlib_font_dir", lambda: None)
+    monkeypatch.setattr(tgui, "CARRIED_FONT_DIR", root)
+    got, got_face = glyph()
+    assert got_face == ["matplotlib", want_face[1]] and "Italic" in want_face[1]
+    np.testing.assert_array_equal(got, want)
+    assert (want < 128).any()  # ink
+
+
+def test_no_fonts_error_names_the_carried_manifest(monkeypatch):
+    from omniparser_tpu_torch.train import synth_text
+
+    monkeypatch.setattr(synth_text, "_FONT_FILES", [])
+    with pytest.raises(RuntimeError) as err:
+        synth_text.render_line(np.random.default_rng(0))
+    msg = str(err.value)
+    assert "no TTF font" in msg and "/usr/share/fonts" in msg
+    assert synth_text.CARRIED_FONT_DIR in msg and "export_torch_weights.py" in msg
+
+
 def test_make_dataset_rows_equal():
     got, want = tsb.make_dataset(2, seed=123), jsb.make_dataset(2, seed=123)
     assert len(got) == len(want) and {r["group"] for r in got} == {"text", "icon"}

@@ -75,6 +75,12 @@ SLICE8_MODULES = ("train/__init__.py", "train/losses.py", "train/ocr_losses.py",
                   "weights/checkpoints.py", "weights/convert.py", "weights/init.py",
                   "models/norm.py", "train/data.py")
 
+# the tenth slice: the ops names, the OCR host postprocess, the carried faces
+SLICE10_MODULES = ("ops/__init__.py", "ops/boxes.py", "ops/preprocess.py", "models/ocr.py",
+                   "train/train_ocr.py", "utils/hostops.py", "train/synth_text.py",
+                   "train/synth_gui.py")
+SLICE10_SCRIPTS = ("scripts/trained_on_card.py", "scripts/export_torch_weights.py")
+
 
 def test_the_family_modules_are_walked_and_import_none_of_jax():
     """Every module of the YOLOv9, easyocr, BLIP-2 and Phi-3-V families and
@@ -91,10 +97,48 @@ def test_the_family_modules_are_walked_and_import_none_of_jax():
         assert not roots & set(FORBIDDEN) - allowed, (rel, roots & set(FORBIDDEN))
 
 
+def test_the_tenth_slice_modules_and_script_import_none_of_jax():
+    """The changed modules are walked by the subprocess check above and
+    name none of the forbidden packages in an import statement; the
+    trained-path script imports none of JAX or the JAX package, in its
+    statements or once it runs (the export script reads the JAX package
+    inside its main alone)."""
+    names = set(_port_modules())
+    for rel in SLICE10_MODULES:
+        name = "omniparser_tpu_torch." + rel[:-3].replace("/", ".")
+        assert name.removesuffix(".__init__") in names
+        roots = _imported_roots(os.path.join(ROOT, "omniparser_tpu_torch", rel))
+        assert not roots & set(FORBIDDEN) - {"PIL", "cv2"}, (rel, roots & set(FORBIDDEN))
+    roots = _imported_roots(os.path.join(ROOT, SLICE10_SCRIPTS[0]))
+    assert "omniparser_tpu_torch" in roots and not roots & {"jax", "flax", "orbax",
+                                                            "omniparser_tpu"}
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import trained_on_card, chip_smoke\n"
+        "from omniparser_tpu_torch.train import train_detector, train_ocr, train_captioner\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'orbax', 'omniparser_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    with open(os.path.join(ROOT, SLICE10_SCRIPTS[1])) as f:
+        tree = ast.parse(f.read())
+    top = {n.module.split(".")[0] for n in tree.body if isinstance(n, ast.ImportFrom)}
+    top |= {a.name.split(".")[0] for n in tree.body if isinstance(n, ast.Import)
+            for a in n.names}
+    assert not top & {"jax", "omniparser_tpu"}
+
+
 @pytest.mark.parametrize("rel", ["annotate.py", "utils/image.py", "models/tokenizer.py",
                                  "pipeline.py", "serving/http.py", "serving/batcher.py",
                                  "utils/metrics.py", "models/quant.py", *FAMILY_MODULES,
-                                 *SLICE7_MODULES, *SLICE8_MODULES])
+                                 *SLICE7_MODULES, *SLICE8_MODULES,
+                                 *sorted(set(SLICE10_MODULES) - set(SLICE7_MODULES)
+                                         - set(SLICE8_MODULES))])
 def test_optional_host_libraries_are_imported_inside_functions(rel):
     """cv2, PIL and regex may appear only inside function bodies."""
     with open(os.path.join(ROOT, "omniparser_tpu_torch", rel)) as f:
