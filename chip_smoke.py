@@ -147,10 +147,18 @@ once without a card.  Phases, one JSON line each:
                   a reduced ShardedParse at (2, 2) on the card against the CPU's
                   (float32, TF32 off): every field but the boxes equal, boxes
                   within 1e-4
+  bench           bench_torch.main (the port's benchmark) with seeded weights
+                  on four synthetic screenshots, 10 latency calls and two
+                  parse_batch rounds: its JSON line parses and holds every
+                  key, ``correct`` is true, no device field is null, and the
+                  traced parse_image launches nms_keep, merge_masks and
+                  crop_resize 1, 1 and 2 times, the traced parse_batch of
+                  four 4, 4 and 8 times
 
 Each path (parse, batch, serve, int8, compat, families, eval, train_roundtrip,
-the mesh's ShardedParse at both shapes and single-step parse_image; the
-training data paths for crop_resize) runs with the kernels' launch counters
+the mesh's ShardedParse at both shapes and single-step parse_image, the
+benchmark's traced parse_image and parse_batch; the training data paths for
+crop_resize) runs with the kernels' launch counters
 set to 0 just before it and read just after, and fails if a kernel of the path
 was not launched.  Then the card's nvidia-smi line, one {"kernels": [...]} line
 (``launches``: the parse's counts; ``launches_by_path``: every path's) and,
@@ -176,6 +184,7 @@ import numpy as np
 import torch
 
 import omniparser_tpu_torch  # noqa: F401  (fails at once where the package is absent)
+from bench_torch import synthetic_screenshot  # the screenshots of both scripts
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # float32 outside the tensor cores
@@ -473,36 +482,6 @@ def crop_case(rng, k: int):
     boxes[5] = [0.5, 0.5, 0.5016, 0.5028]           # 3x3 px upscaled
     boxes[6] = [0.25, 0.25, 0.2526, 0.2519]         # 5x2 px upscaled
     return img, (h, w), boxes
-
-
-def synthetic_screenshot(rng, h: int = 1080, w: int = 1920) -> np.ndarray:
-    """Filled rectangles, bars and high-contrast blocks; no font library."""
-    img = np.full((h, w, 3), 236, np.uint8)
-    img[:48] = (40, 44, 52)                                   # title bar
-    img[48:, :260] = (250, 250, 250)                          # side panel
-    for i in range(14):                                       # side-panel rows
-        y = 80 + i * 60
-        img[y:y + 28, 24:52] = rng.integers(30, 200, 3)       # icon block
-        x = 70
-        for _ in range(int(rng.integers(2, 5))):              # "words": dark bars
-            ww = int(rng.integers(18, 60))
-            img[y + 8:y + 20, x:x + ww] = 25
-            x += ww + 8
-    for r in range(6):                                        # tool-bar icons
-        for c in range(18):
-            y, x = 70 + r * 150, 300 + c * 88
-            col = rng.integers(0, 255, 3)
-            img[y:y + 56, x:x + 56] = col
-            img[y + 14:y + 42, x + 14:x + 42] = 255 - col
-            xx = x
-            for _ in range(int(rng.integers(1, 3))):          # caption bars
-                ww = int(rng.integers(14, 34))
-                img[y + 66:y + 76, xx:xx + ww] = 20
-                xx += ww + 6
-    for i in range(9):                                        # paragraph lines
-        y = 960 + i * 12
-        img[y:y + 7, 300:300 + int(rng.integers(600, 1500))] = 60
-    return img
 
 
 # ------------------------------------------------------------------ #
@@ -3627,6 +3606,48 @@ def parity_mesh(seed: int, cpu, cfg, dims, dev: str = "cuda"):
         fail(f"parity_on_card: the sharded parses read no text or decoded no caption: {found}")
 
 
+# seeded weights and synthetic screenshots: the checkout carries no export and
+# no font
+BENCH_ARGV = ("--weights", "seeded", "--inputs", "synthetic", "--calls", "10",
+              "--rounds", "2", "--count", "4")
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "best_round_shots_per_sec",
+              "p50_latency_s", "mfu", "device_flops_per_parse", "device_flops_split",
+              "device_time_share", "captioner_quant", "ocr_weights", "stage_timings_s",
+              "device", "weights", "inputs", "p90_latency_s", "n_calls", "launches_per_parse",
+              "peak_bytes", "device_stage_ms", "decode_device_ms", "top_kernels",
+              "kernel_launches", "correct", "flops_note")
+
+
+def phase_bench(launches_by_path):
+    """The port's benchmark script, run through its main function; its
+    traced paths' launch counts join `launches_by_path`."""
+    import io
+
+    import bench_torch
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_torch.main(list(BENCH_ARGV))
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    emit("bench", seconds=round(time.perf_counter() - t0, 1), **line)
+    missing = [k for k in BENCH_KEYS if k not in line]
+    if missing:
+        fail(f"bench: the JSON line lacks {missing}")
+    if line["correct"] is not True:
+        fail(f"bench: parse_batch disagrees with parse_image: {line['check']}")
+    nulls = [k for k in bench_torch.DEVICE_FIELDS if line[k] is None]
+    if nulls or line["decode_device_ms"]["events_ms"] is None or not line["device_stage_ms"]:
+        fail(f"bench: device fields are null on the card: {nulls}")
+    n = line["inputs"]["count"]
+    for path, shots in (("parse_image", 1), ("parse_batch", n)):
+        counts = line["kernel_launches"][path]
+        path_counts("bench_" + path, counts, launches_by_path)
+        want = {"nms_keep": shots, "merge_masks": shots, "crop_resize": 2 * shots}
+        if counts != want:
+            fail(f"bench: the traced {path} of {shots} launched {counts}, want {want}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3651,6 +3672,7 @@ def main() -> None:
     del pipe, single
     torch.cuda.empty_cache()
     phase_parity(args.seed)
+    phase_bench(launches_by_path)
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi_line, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -261,3 +261,34 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# the eleventh slice: the port's benchmark and demo
+MEASUREMENT_SCRIPTS = ("bench_torch.py", "examples/demo_torch.py")
+
+
+@pytest.mark.parametrize("rel", MEASUREMENT_SCRIPTS)
+def test_the_benchmark_and_demo_import_none_of_jax(rel):
+    """The benchmark and the demo name none of JAX or the JAX package in an
+    import statement, nor the JAX package's benchmark or chip_smoke, and
+    importing them (with the modules their main functions import) pulls in
+    none of it."""
+    roots = _imported_roots(os.path.join(ROOT, rel))
+    assert "omniparser_tpu_torch" in roots
+    assert not roots & {"jax", "flax", "orbax", "omniparser_tpu", "bench", "chip_smoke"}, roots
+    name = os.path.basename(rel)[:-3]
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.join(ROOT, rel))!r})\n"
+        f"import {name}\n"
+        "from omniparser_tpu_torch import pipeline, ops\n"
+        "from omniparser_tpu_torch.train import synth_gui\n"
+        "from omniparser_tpu_torch.utils import image\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'orbax', 'omniparser_tpu', 'bench', 'chip_smoke'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
