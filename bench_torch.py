@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """End-to-end parse benchmark of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 bench_torch.py [--weights exported|seeded] [--inputs rendered|synthetic]
+    python3 bench_torch.py [--weights trained|seeded] [--inputs rendered|synthetic]
                            [--seed N] [--size S] [--count 8] [--calls 100]
                            [--rounds R] [--device cuda|cpu]
 
@@ -10,15 +10,16 @@ stays as it is) and of ``scripts/profile_device_step.py``.  Configuration
 as ``bench.py``'s: ``PipelineConfig()`` with ``max_upload_side =
 max_som_side = 1920``, an int8 captioner pinned to Florence-2-base dims with
 seeded weights (the trained ``cap_synth`` is a reduced model and would
-flatter the throughput), and the detector and OCR from the trained export
-(``--weights exported``, the default: ``det_synth.npz`` and
-``ocr_en_synth.npz`` in ``omniparser_tpu_torch/weights/exported/``, which
-``scripts/export_torch_weights.py`` writes; missing, the script raises) or
-seeded from ``--seed`` (``--weights seeded``).
+flatter the throughput), and the detector and OCR trained (``--weights
+trained``, the default: ``'auto'``, the orbax trees ``det_synth`` and
+``ocr_en_synth`` committed under ``omniparser_tpu/weights/``, read without
+JAX; missing, the script raises) or seeded from ``--seed`` (``--weights
+seeded``).
 
 Inputs: ``--count`` screenshots made from ``--seed`` before any timing:
 ``render_gui_scene`` scenes of ``--size`` (default 1280; they need the TTF
-faces, or the carried ones beside the export) or, with ``--inputs
+faces, or the carried ones that ``scripts/export_torch_weights.py`` writes
+into ``omniparser_tpu_torch/weights/exported/fonts/``) or, with ``--inputs
 synthetic``, a font-free generator (long side ``--size``, default 1920, at
 16:9).  Passes, in order: warm-up; latency (``parse_image`` of the first,
 ``--calls`` times); throughput (``parse_batch`` of all, 5 to 9 rounds under
@@ -52,7 +53,7 @@ from omniparser_tpu_torch.utils.device import resolve_device
 BASELINE_SHOTS_PER_SEC = 1.0 / 0.6  # A100 V2 reference point, as in bench.py
 PEAK_BF16_FLOPS = 989e12            # H100 SXM dense bf16, at 700 W
 BUDGET_S = 75.0
-EXPORTS = ("det_synth.npz", "ocr_en_synth.npz")
+TREES = ("det_synth", "ocr_en_synth")  # the trained weights of --weights trained
 KERNELS = ("nms_keep", "merge_masks", "crop_resize")
 STAGE_PARSES = 5
 DECODE_REPEATS = 10
@@ -69,7 +70,7 @@ FLOPS_NOTE = ("torch.utils.flop_counter.FlopCounterMode over one parse_image, de
               "mfu = device_flops_per_parse / (p50_latency_s x peak_flops)")
 
 
-def bench_config(weights: str = "exported") -> PipelineConfig:
+def bench_config(weights: str = "trained") -> PipelineConfig:
     """bench.py's serving configuration; 'seeded' seeds the detector and OCR too."""
     base = PipelineConfig()
     cfg = dataclasses.replace(
@@ -81,15 +82,14 @@ def bench_config(weights: str = "exported") -> PipelineConfig:
     return cfg
 
 
-def require_exports() -> None:
+def require_trees() -> dict:
+    """{field: path} of the trained trees; raises, naming the tree, where
+    one is missing (pass --weights seeded to run without them)."""
     from omniparser_tpu_torch import pipeline
 
-    missing = [n for n in EXPORTS if not os.path.isfile(os.path.join(pipeline.EXPORT_DIR, n))]
-    if missing:
-        raise FileNotFoundError(
-            f"--weights exported needs {missing} in {pipeline.EXPORT_DIR}: write them with "
-            "scripts/export_torch_weights.py where JAX is and run from a copy that carries "
-            "them, or pass --weights seeded")
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {"detector_weights": os.path.relpath(pipeline.trained_tree(TREES[0]), root),
+            "ocr_weights": os.path.relpath(pipeline.trained_tree(TREES[1]), root)}
 
 
 def synthetic_screenshot(rng, h: int = 1080, w: int = 1920) -> np.ndarray:
@@ -363,7 +363,7 @@ def card_info(dev):
 
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--weights", choices=("exported", "seeded"), default="exported")
+    ap.add_argument("--weights", choices=("trained", "seeded"), default="trained")
     ap.add_argument("--inputs", choices=("rendered", "synthetic"), default="rendered")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--size", type=int, default=None,
@@ -383,8 +383,7 @@ def main(argv=None, *, reduce=None, captioner_dims=None):
 
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    if args.weights == "exported":
-        require_exports()
+    trees = require_trees() if args.weights == "trained" else None
     cfg = bench_config(args.weights)
     if reduce is not None:
         cfg = reduce(cfg)
@@ -396,6 +395,10 @@ def main(argv=None, *, reduce=None, captioner_dims=None):
         pass_s[name] = now - clock[0]
         clock[0] = now
 
+    if args.inputs == "rendered":
+        from omniparser_tpu_torch.train.synth_text import require_fonts
+
+        require_fonts()  # names the carried faces where no TTF face is found
     images, truth = make_inputs(args.inputs, args.seed, args.count, args.size)
     lap("inputs")
     pipe = SOMPipeline(cfg, device=dev, seed=args.seed, captioner_dims=captioner_dims)
@@ -416,7 +419,7 @@ def main(argv=None, *, reduce=None, captioner_dims=None):
     stages, decode = stage_pass(pipe, images[0], dev)
     lap("stages")
     check = check_outputs(pipe, images, batch_results,
-                          truth if args.weights == "exported" else None)
+                          truth if args.weights == "trained" else None)
     lap("check")
 
     out = {
@@ -449,6 +452,7 @@ def main(argv=None, *, reduce=None, captioner_dims=None):
         "stage_timings_s": lat["stages"],
         "device": card_info(dev),
         "weights": args.weights,
+        "weights_source": trees or "seeded",
         "inputs": {"kind": args.inputs, "seed": args.seed, "size": list(images[0].shape[:2]),
                    "count": len(images)},
         "pass_s": pass_s,

@@ -147,6 +147,18 @@ once without a card.  Phases, one JSON line each:
                   a reduced ShardedParse at (2, 2) on the card against the CPU's
                   (float32, TF32 off): every field but the boxes equal, boxes
                   within 1e-4
+  trained         the trained orbax trees committed under omniparser_tpu/weights/
+                  (det_synth, ocr_en_synth, cap_synth) read from the checkout by
+                  weights/orbax_read.py (the zstd decoder built by g++ apart):
+                  arrays, bytes stored and decoded, ms, MB/s, and each tree's
+                  digest against TREE_DIGESTS; SOMPipeline(PipelineConfig()),
+                  every weight field 'auto', on two 1080x1920 synthetic
+                  screenshots in float32 (TF32 off), the card against the CPU:
+                  elements, types, sources, texts, captions and counts equal,
+                  boxes within 1e-4; then a bfloat16 parse timed: wall, device
+                  ms, launches, idle share; launches nms_keep 1, merge_masks 1,
+                  crop_resize one a block of 32 OCR lines, one for the caption
+                  grid, one a K captions beyond the K slots (2 on these screens)
   bench           bench_torch.main (the port's benchmark) with seeded weights
                   on four synthetic screenshots, 10 latency calls and two
                   parse_batch rounds: its JSON line parses and holds every
@@ -157,7 +169,7 @@ once without a card.  Phases, one JSON line each:
 
 Each path (parse, batch, serve, int8, compat, families, eval, train_roundtrip,
 the mesh's ShardedParse at both shapes and single-step parse_image, the
-benchmark's traced parse_image and parse_batch; the training data paths for
+trained bfloat16 parse, the benchmark's traced parse_image and parse_batch; the training data paths for
 crop_resize) runs with the kernels' launch counters
 set to 0 just before it and read just after, and fails if a kernel of the path
 was not launched.  Then the card's nvidia-smi line, one {"kernels": [...]} line
@@ -173,6 +185,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3606,8 +3619,172 @@ def parity_mesh(seed: int, cpu, cfg, dims, dev: str = "cuda"):
         fail(f"parity_on_card: the sharded parses read no text or decoded no caption: {found}")
 
 
-# seeded weights and synthetic screenshots: the checkout carries no export and
-# no font
+TRAINED_TREES = ("det_synth", "ocr_en_synth", "cap_synth")
+# weights/orbax_read.tree_digest of each committed tree, as the JAX package's
+# load_checkpoint restores it (tests/test_torch_orbax.py derives them so)
+TREE_DIGESTS = {
+    "det_synth": "ca3723923866411bbe9c5ea784439da02ff5f4315ed3bcef8b991a7232919b6b",
+    "ocr_en_synth": "8ccf49d869c6c6c8bf50d31bfe25782d1c97ec44afadc5d5d06e3b610da56056",
+    "cap_synth": "9662c8eefc2cc6d5aaa263f41ef0f1e5a2d27b0aa886389ccf89eb8a659b5b6c",
+}
+TRAINED_BOX_ATOL = 1e-4  # normalised boxes, card against CPU in float32 (ROADMAP C.10)
+TRAINED_SHOTS = 2
+
+
+@contextlib.contextmanager
+def tf32_off():
+    was = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def with_dtype(cfg, dtype: str):
+    """`cfg` with the detector, OCR and captioner in `dtype`."""
+    return dataclasses.replace(
+        cfg, detector=dataclasses.replace(cfg.detector, dtype=dtype),
+        ocr=dataclasses.replace(cfg.ocr, dtype=dtype),
+        captioner=dataclasses.replace(cfg.captioner, dtype=dtype))
+
+
+def read_trees():
+    """The committed trees through the port's reader: per tree its arrays,
+    bytes stored and decoded, wall ms of a first and a second read, decoded
+    MB/s and digest; fails where a digest differs from TREE_DIGESTS."""
+    from omniparser_tpu_torch.pipeline import TRAINED_DIR
+    from omniparser_tpu_torch.utils import zstd
+    from omniparser_tpu_torch.weights.convert import flatten_variables
+    from omniparser_tpu_torch.weights.orbax_read import read_orbax_tree, tree_digest
+
+    built = not os.path.exists(zstd._lib_path())
+    t0 = time.perf_counter()
+    zstd.load()  # g++ builds csrc/zstd_decode.cpp here, apart from the reads
+    out = {"decoder_built": built, "decoder_build_s": round(time.perf_counter() - t0, 3)}
+    for name in TRAINED_TREES:
+        path = os.path.join(TRAINED_DIR, name)
+        stored = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+                     for f in fs)
+        walls = []
+        for _ in range(2):
+            t = time.perf_counter()
+            tree = read_orbax_tree(path)
+            walls.append((time.perf_counter() - t) * 1e3)
+        leaves = flatten_variables(tree)
+        decoded = sum(a.nbytes for a in leaves.values())
+        digest = tree_digest(tree)
+        out[name] = {"arrays": len(leaves), "stored_bytes": stored, "decoded_bytes": decoded,
+                     "ms": [round(w, 2) for w in walls],
+                     "decoded_mb_per_s": round(decoded / 1e6 / (walls[0] / 1e3), 2),
+                     "digest": digest}
+        if digest != TREE_DIGESTS[name]:
+            fail(f"trained: the digest of {name} is {digest}, want {TREE_DIGESTS[name]}")
+    return out
+
+
+def parses_equal(got, want, atol: float = TRAINED_BOX_ATOL):
+    """Per image of two [(elements, counts)] lists: the first differing
+    field (texts and captions exact, boxes within atol), caption texts
+    apart, and the counts that differ; (all equal, rows)."""
+    rows = []
+    for (ea, ca), (eb, cb) in zip(got, want):
+        field, flips = same_elements(ea, eb, atol)
+        box = max((max(abs(x - y) for x, y in zip(a["bbox"], b["bbox"]))
+                   for a, b in zip(ea, eb)), default=0.0)
+        rows.append({"elements": len(ea), "first_difference": field, "caption_flips": flips,
+                     "max_box_diff": box,
+                     "counts_differing": {k: [ca[k], cb.get(k)] for k in ca if ca[k] != cb.get(k)}})
+    ok = all(r["first_difference"] is None and not r["caption_flips"] and not r["counts_differing"]
+             for r in rows)
+    return ok, rows
+
+
+def parse_shots(pipe, images):
+    out = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for img in images:
+            _, elements = pipe.parse_elements(img)
+            out.append((elements, dict(pipe.last_counts)))
+    return out
+
+
+def phase_trained(seed: int, launches_by_path, dev: str = "cuda"):
+    """The trained trees committed under omniparser_tpu/weights/, read from
+    the checkout without JAX: digests, card against CPU in float32, and a
+    timed bfloat16 parse whose launches join `launches_by_path`."""
+    from omniparser_tpu_torch.config import PipelineConfig
+    from omniparser_tpu_torch.pipeline import SOMPipeline
+
+    t0 = time.perf_counter()
+    emit("trained", trees=read_trees())
+
+    rng = np.random.default_rng(seed + 13)
+    images = [synthetic_screenshot(rng) for _ in range(TRAINED_SHOTS)]
+    cfg32 = with_dtype(PipelineConfig(), "float32")  # every weight field 'auto'
+    with tf32_off():
+        t = time.perf_counter()
+        card = SOMPipeline(cfg32, device=dev)
+        got = parse_shots(card, images)
+        card_s = time.perf_counter() - t
+        del card
+        t = time.perf_counter()
+        want = parse_shots(SOMPipeline(cfg32, device="cpu"), images)
+        cpu_s = time.perf_counter() - t
+    ok, rows = parses_equal(got, want)
+    for r, (elements, counts) in zip(rows, got):
+        r.update(counts=counts, texts=sum(e["type"] == "text" for e in elements),
+                 sample=[e["content"] for e in elements[:3]])
+    emit("trained", parity="float32, TF32 off, card against CPU", images=[list(images[0].shape)],
+         equal=ok, per_image=rows, card_s=round(card_s, 2), cpu_s=round(cpu_s, 2))
+    if not ok:
+        fail(f"trained: the card's float32 parses differ from the CPU's: {rows}")
+    if not all(r["elements"] and r["counts"]["kb"] for r in rows):
+        fail(f"trained: a parse found no element or decoded no caption: {rows}")
+
+    # bfloat16, as users run it: wall, launches, device ms and idle share
+    pipe = SOMPipeline(PipelineConfig(), device=dev)
+    image = images[0]
+
+    def wall():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, elements = pipe.parse_elements(image)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, elements
+
+    wall()  # warm-up of this screenshot's shapes
+    reset_counts()
+    first, elements = wall()
+    counts = all_counts()
+    run_counts = dict(pipe.last_counts)
+    walls = [first] + [wall()[0] for _ in range(2)]
+    # K3's launches: one line grid per rec_block of OCR candidates (the
+    # recogniser's block loop, none without text), the fused step's caption
+    # grid, and one more per K content-less icons beyond its K slots
+    # (pipeline._caption_boxes)
+    cfg = pipe.config
+    k = cfg.captioner.batch_size
+    captioned = sum(e["source"] == "box_yolo_content_yolo" for e in elements)
+    grids = {"line": -(-run_counts["ocr_candidates"] // cfg.ocr.rec_block), "caption": 1,
+             "caption_overflow": -(-max(captioned - run_counts["cap_need"], 0) // k)}
+    path_counts("trained_parse", counts, launches_by_path)
+    emit("trained", dtype="bfloat16", counts=run_counts, elements=len(elements),
+         captioned=captioned, launches=counts, crop_grids=grids,
+         profile=profile_pass(lambda: wall()[0], walls),
+         seconds=round(time.perf_counter() - t0, 1))
+    want_launches = {"nms_keep": 1, "merge_masks": 1, "crop_resize": sum(grids.values())}
+    if {n: counts.get(n, 0) for n in want_launches} != want_launches:
+        fail(f"trained: the bfloat16 parse launched {counts}, want {want_launches}")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+# seeded weights and synthetic screenshots: a plain checkout carries no export
+# and no font (the trained trees are phase trained's)
 BENCH_ARGV = ("--weights", "seeded", "--inputs", "synthetic", "--calls", "10",
               "--rounds", "2", "--count", "4")
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "best_round_shots_per_sec",
@@ -3672,6 +3849,7 @@ def main() -> None:
     del pipe, single
     torch.cuda.empty_cache()
     phase_parity(args.seed)
+    phase_trained(args.seed, launches_by_path)
     phase_bench(launches_by_path)
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi_line, flush=True)

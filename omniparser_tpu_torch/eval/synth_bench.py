@@ -114,7 +114,7 @@ def make_dataset(n_scenes: int, seed: int = 777100,
 def run(n_scenes: int = 6, seed: int = 777100, pipeline=None, log_path=None,
         device="cuda") -> Dict:
     """Scores of `pipeline` on n_scenes held-out scenes.  The default
-    pipeline is PipelineConfig()'s (weights 'auto': the export) on
+    pipeline is PipelineConfig()'s (weights 'auto': the committed trees) on
     `device`, with the detector at the scenes' own 640 bucket."""
     if pipeline is None:
         import dataclasses

@@ -64,8 +64,8 @@ class PaddleOCRBackend:
 
 def make_ocr_backend(config: OcrConfig, weights=None, device="cuda"):
     """The backend `config.backend` names.  weights (the 'jax' backend):
-    None is a seeded init, 'auto' the exported shipped checkpoint (raises
-    where the export is missing), a path an exported .npz."""
+    None is a seeded init, 'auto' the committed trained tree ocr_en_synth
+    (raises where it is missing), a path an orbax directory or exported .npz."""
     if config.backend == "null":
         return NullOCR()
     if config.backend == "jax":

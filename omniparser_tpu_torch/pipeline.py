@@ -65,6 +65,10 @@ from omniparser_tpu_torch.ops.preprocess import (
 from omniparser_tpu_torch.utils.device import resolve_device
 
 EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights", "exported")
+# the trained orbax trees the repository ships beside the JAX package
+# (det_synth, ocr_en_synth, cap_synth): a data path, read without JAX
+TRAINED_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "omniparser_tpu", "weights")
 
 
 class NullCaptioner:
@@ -285,30 +289,39 @@ def caption_slots(cfg: PipelineConfig, out: Dict[str, torch.Tensor], padded, hw
             "cap_overflow": need.sum() - cap_valid.sum()}
 
 
-def _flat_weights(field: Optional[str], name: str):
+def trained_tree(name: str) -> str:
+    """The committed trained tree `name` under ``TRAINED_DIR``; raises,
+    naming it, where it is missing."""
+    from omniparser_tpu_torch.weights.orbax_read import is_orbax_dir
+
+    path = os.path.join(TRAINED_DIR, name)
+    if not is_orbax_dir(path):
+        raise FileNotFoundError(
+            f"weights 'auto' read the trained tree {path}, which is missing (an orbax "
+            "directory with _METADATA and manifest.ocdbt); give a checkpoint path, or pass "
+            "None for this weight field to initialise from a seed")
+    return path
+
+
+def _flat_weights(field: Optional[str], name: str, fits: Optional[str] = None):
     """A config weight field -> flat variable dict; None (and only None)
-    asks for the seeded init.  'auto' is the exported shipped checkpoint and
-    raises where the export has not been made: untrained networks are never
-    a silent default.  Any other file is an exported .npz; a directory (an
-    orbax tree) raises."""
-    from omniparser_tpu_torch.weights.convert import load_npz
+    asks for the seeded init.  'auto' is the committed trained tree `name`
+    (``TRAINED_DIR``), and raises, naming it, where it is missing or where
+    `fits` says why the network does not match it: untrained networks are
+    never a silent default.  Any other path is an orbax directory or an
+    exported .npz (``weights/checkpoints.load_flat``)."""
+    from omniparser_tpu_torch.weights.checkpoints import load_flat
 
     if field is None:
         return None
     if field == "auto":
-        path = os.path.join(EXPORT_DIR, name + ".npz")
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"weights 'auto' need {path}: write it with "
-                "`python scripts/export_torch_weights.py`, give the path of an exported "
-                ".npz, or pass None for this weight field to initialise from a seed")
-        return load_npz(path)
-    if os.path.isdir(field):
-        raise ValueError(
-            f"{field} is a directory: an orbax checkpoint of the JAX package cannot be read "
-            "here; write its .npz with `python scripts/export_torch_weights.py` and give that "
-            "path (a captioner directory is read where it holds an HF model.safetensors)")
-    return load_npz(field)
+        path = trained_tree(name)
+        if fits:
+            raise ValueError(f"weights 'auto' read the trained tree {name}, which does not fit "
+                             f"this network: {fits}; give a checkpoint path, or pass None for "
+                             "a seeded init")
+        return load_flat(path)
+    return load_flat(field)
 
 
 def _sub_tree(flat: Dict, prefix: str) -> Dict:
@@ -341,8 +354,9 @@ def make_detector(dc) -> Detector:
 
 def detector_state_from_field(field: Optional[str], detector: Detector):
     """``PipelineConfig.detector_weights`` -> a state_dict for the
-    detector's module, or None for the seeded init: 'auto' and ``*.npz``
-    are exports (of the YOLOv8 family), any other file an ultralytics
+    detector's module, or None for the seeded init: 'auto' (the committed
+    det_synth tree), an orbax directory and ``*.npz`` hold Flax variables
+    of the YOLOv8 family, any other file an ultralytics
     ``.pt`` or torch state_dict (``weights/convert_yolo.py``), or for a GELAN
     detector a yolov9 TorchScript or state dict (``weights/convert_yolov9.py``)."""
     from omniparser_tpu_torch.models.yolov9 import YOLOv9Detector
@@ -358,7 +372,11 @@ def detector_state_from_field(field: Optional[str], detector: Detector):
             raise ValueError(
                 f"detector_weights={field!r}: there is no exported checkpoint of the GELAN "
                 "family; give a yolov9 TorchScript or state dict, or None for a seeded init")
-        return convert.convert_yolov8(_sub_tree(_flat_weights(field, "det_synth"), "det"),
+        fits = None
+        if detector.variant != "n" or detector.num_classes != 1:  # as the JAX default
+            fits = (f"it is a YOLOv8-n of 1 class, the detector variant {detector.variant!r} "
+                    f"of {detector.num_classes}")
+        return convert.convert_yolov8(_sub_tree(_flat_weights(field, "det_synth", fits), "det"),
                                       detector.variant, detector.num_classes)
     return load_yolov9_state(field, detector) if gelan else load_detector_state(field, detector)
 
@@ -378,7 +396,11 @@ def ocr_states_from_field(field: Optional[str], ocr_config):
                 "of this arch; name craft_mlt_25k.pth / english_g2.pth in "
                 "OcrConfig.easyocr_craft_pth / easyocr_rec_pth, or pass None for a seeded init")
         return None
-    flat = _flat_weights(field, "ocr_en_synth")
+    fits = None
+    if ocr_config.rec_height != 32 or ocr_config.rec_max_width != 480:  # as the JAX default
+        fits = (f"its lines are 32x480, the config's {ocr_config.rec_height}x"
+                f"{ocr_config.rec_max_width}")
+    flat = _flat_weights(field, "ocr_en_synth", fits)
     if flat is None:
         return None
     return (convert.convert_text_detector(_sub_tree(flat, "det")),
@@ -388,8 +410,9 @@ def ocr_states_from_field(field: Optional[str], ocr_config):
 def florence_from_field(field: Optional[str], config, dims, generator, device, state=None):
     """``PipelineConfig.captioner_weights`` -> a FlorenceCaptioner: from
     `state` where given, else an HF Florence-2 directory (model.safetensors;
-    at ``dims``, default florence-2-base), an export ('auto' or ``*.npz``,
-    which carries its own dims), or None for the seeded init at ``dims``."""
+    at ``dims``, default florence-2-base), Flax variables that carry their
+    own dims ('auto', the committed cap_synth tree; an orbax directory with
+    dims.json; an exported ``*.npz``), or None for the seeded init at ``dims``."""
     import json
 
     from omniparser_tpu_torch.models.florence2 import BASE, FlorenceCaptioner, FlorenceDims
@@ -400,9 +423,18 @@ def florence_from_field(field: Optional[str], config, dims, generator, device, s
                                  device=device)
     if field is not None and os.path.isfile(os.path.join(field, "model.safetensors")):
         return FlorenceCaptioner.from_checkpoint(field, config, dims or BASE, device=device)
-    flat = _flat_weights(field, "cap_synth")
+    fits = None
+    if field == "auto" and not os.path.isfile(os.path.join(TRAINED_DIR, "cap_synth", "dims.json")):
+        fits = "it has no dims.json beside it"
+    flat = _flat_weights(field, "cap_synth", fits)
     if flat is not None:
+        if "__dims__" not in flat:
+            raise ValueError(f"captioner_weights={field!r}: the checkpoint carries no dims "
+                             "(__dims__ in an .npz, dims.json beside an orbax tree)")
         raw = json.loads(str(flat.pop("__dims__")))
+        # trees written before the patch_prenorm fix trained with post-norm
+        # conv embeds everywhere, as the JAX package's from_synth_checkpoint reads them
+        raw.setdefault("patch_prenorm", [False] * 4)
         dims = FlorenceDims(**{k: tuple(v) if isinstance(v, list) else v
                                for k, v in raw.items()})
         state = convert.convert_florence2(_sub_tree(flat, "cap"), dims)

@@ -1,13 +1,17 @@
-"""Checkpoint save and load for the trained families, as flat ``.npz`` files.
+"""Checkpoint save and load for the trained families.
 
-The JAX package writes orbax trees, which nothing here can read.  This
-package writes the flat layout that ``scripts/export_torch_weights.py``
-writes and that ``SOMPipeline``'s weight fields load (``'auto'`` or a path
-to a ``.npz``): one key per Flax variable, prefixed by the family
-(``det/params/stem/conv/kernel``, ``rec/batch_stats/..._ConvBlock_0/
-BatchNorm_0/mean``, ``cap/params/...``), float32 numpy, and the captioner's
-dims as JSON under ``__dims__``.  The JAX package can read such a file
-with numpy alone.
+This package writes flat ``.npz`` files: one key per Flax variable,
+prefixed by the family (``det/params/stem/conv/kernel``,
+``rec/batch_stats/..._ConvBlock_0/BatchNorm_0/mean``, ``cap/params/...``),
+float32 numpy, and the captioner's dims as JSON under ``__dims__``.  The
+JAX package can read such a file with numpy alone.  Writing orbax trees is
+left to the JAX package.
+
+It reads both those files and the orbax trees the JAX package writes
+(``weights/orbax_read.py``, without JAX): the trained trees committed under
+``omniparser_tpu/weights/`` that ``SOMPipeline``'s ``'auto'`` weight fields
+load, and the JAX trainers' output, ``step_N/`` directories included.  A
+tree's ``dims.json`` sidecar, where present, is its ``__dims__``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch.nn as nn
 
-from omniparser_tpu_torch.weights.convert import load_npz, unconvert_state
+from omniparser_tpu_torch.weights.convert import flatten_variables, load_npz, unconvert_state
+from omniparser_tpu_torch.weights.orbax_read import is_orbax_dir, read_orbax_tree
 
 
 def _flat(family: str, value) -> Dict[str, np.ndarray]:
@@ -52,13 +57,32 @@ def save_checkpoint(path: str, tree: Dict[str, Any], step: Optional[int] = None,
     return target
 
 
+def load_flat(path: str) -> Dict[str, np.ndarray]:
+    """A checkpoint as one flat dict ({'det/params/stem/conv/kernel': array,
+    ..., '__dims__': JSON where present}): an orbax directory through
+    ``weights/orbax_read.py``, with its ``dims.json`` as ``__dims__``, any
+    other path a ``.npz`` file."""
+    if os.path.isdir(path):
+        if not is_orbax_dir(path):
+            raise ValueError(f"{path} is a directory but not an orbax checkpoint "
+                             "(it lacks _METADATA or manifest.ocdbt)")
+        flat = flatten_variables(read_orbax_tree(path))
+        dims = os.path.join(path, "dims.json")
+        if os.path.isfile(dims):
+            with open(dims) as f:
+                flat["__dims__"] = np.asarray(f.read())
+        return flat
+    return load_npz(path)
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Read a file `save_checkpoint` (or the export script) wrote:
+    """Read a checkpoint: a file `save_checkpoint` (or the export script)
+    wrote, or an orbax directory of the JAX package (``step_N/`` too):
     {'det': flat Flax variables, ..., '__dims__': JSON string where
     present}.  ``weights/convert.convert_variables`` turns a family's
     variables into its module's state_dict."""
     out: Dict[str, Any] = {}
-    for key, arr in load_npz(path).items():
+    for key, arr in load_flat(path).items():
         if key == "__dims__":
             out[key] = str(arr)
             continue

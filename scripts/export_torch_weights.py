@@ -5,14 +5,15 @@ PyTorch/CUDA package.
     python scripts/export_torch_weights.py [--out DIR]
 
 Reads ``omniparser_tpu/weights/{det_synth,ocr_en_synth,cap_synth}`` through
-the JAX package (orbax trees can only be read there) and writes
+the JAX package and writes
 ``det_synth.npz``, ``ocr_en_synth.npz`` and ``cap_synth.npz`` with keys
 ``det/params/...``, ``rec/batch_stats/...``, ``cap/params/...`` (and the
 captioner's ``__dims__`` JSON).  The default directory,
 ``omniparser_tpu_torch/weights/exported/``, is git-ignored: exported files
-are never committed.  ``omniparser_tpu_torch.SOMPipeline`` picks them up
-when its weight fields are 'auto', and converts them with
-``omniparser_tpu_torch/weights/convert.py`` at load.
+are never committed.  ``omniparser_tpu_torch.SOMPipeline`` loads one given
+as a weight field's path and converts it with
+``omniparser_tpu_torch/weights/convert.py``; its 'auto' fields read the same
+trees directly, without JAX (``weights/orbax_read.py``).
 
 It also copies this machine's TTF faces (``/usr/share/fonts`` and
 matplotlib's, as ``train/synth_text.glob_fonts`` finds them) into

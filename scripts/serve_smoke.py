@@ -4,9 +4,8 @@
     python3 scripts/serve_smoke.py [--device cuda] [--requests 8] [--port N]
 
 Runs ``python -m omniparser_tpu_torch.serving`` (its defaults: the 'auto'
-weights, so the exported checkpoints of ``scripts/export_torch_weights.py``
-must be in ``omniparser_tpu_torch/weights/exported/``; warm-up before it
-serves) on ``--port`` (default: a free port chosen at start), waits until
+weights, the trained orbax trees committed under ``omniparser_tpu/weights/``;
+warm-up before it serves) on ``--port`` (default: a free port chosen at start), waits until
 that process's log says it listens there and ``GET /probe/`` answers, then
 sends one ``POST /parse/`` alone and
 ``--requests`` at once (synthetic screenshots of ``chip_smoke.py``, three

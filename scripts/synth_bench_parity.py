@@ -2,13 +2,12 @@
 """The synthetic grounding benchmark through the port and through the JAX
 package, on the same held-out scenes, with the same trained weights.
 
-    python scripts/export_torch_weights.py          # once: the port's 'auto' weights
     python scripts/synth_bench_parity.py [--scenes 2] [--seed 777555] [--out DIR]
 
 Each side runs in a process of its own, one after the other (the JAX
 pipeline at its default widths peaks near 24 GB of host memory): the JAX
 package's ``eval/synth_bench.run`` with its shipped checkpoints, then the
-port's with the exported ones on the CPU (``--device``), both at their
+port's with the same trees read through its 'auto' fields on the CPU (``--device``), both at their
 default widths and dtypes (bfloat16) with the detector at the scenes' 640.
 Each writes its records as JSONL into --out; the parent compares them row
 for row and prints one JSON line: each side's scores, and the rows whose

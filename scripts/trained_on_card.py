@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""The trained path on the card: rendered screens, the exported trained
-weights, the synthetic grounding benchmark and the three trainers.
+"""The trained path on the card: rendered screens, the trained weights,
+the synthetic grounding benchmark and the three trainers.
 
-    python scripts/export_torch_weights.py            # where JAX is: weights + fonts
+    python scripts/export_torch_weights.py            # where JAX is: the carried fonts
     python3 scripts/trained_on_card.py check          # one chip call
     python3 scripts/trained_on_card.py train --trainer det|ocr|cap   # one chip call each
     python3 scripts/trained_on_card.py bench          # after the three trainers
 
-Every step needs the exported weights (``det_synth.npz``,
-``ocr_en_synth.npz``, ``cap_synth.npz``) and the carried TTF faces
-(``fonts/fonts.json``) in ``omniparser_tpu_torch/weights/exported/``,
-which are git-ignored: run it from a disk copy that carries them.  Where
-either is missing it raises, naming ``scripts/export_torch_weights.py``;
-it never skips.  It needs one CUDA device and imports no JAX.
+The trained weights are the orbax trees committed under
+``omniparser_tpu/weights/`` (``det_synth``, ``ocr_en_synth``, ``cap_synth``),
+which the pipeline's ``'auto'`` fields read without JAX.  Every step needs
+the carried TTF faces (``fonts/fonts.json`` in the git-ignored
+``omniparser_tpu_torch/weights/exported/``): run it from a disk copy that
+carries them.  Where they are missing it raises, naming
+``scripts/export_torch_weights.py``; it never skips.  It needs one CUDA
+device and imports no JAX.
 
 ``check``:
   scenes  the renderers' hashes at three seeds against the ones written
@@ -33,9 +35,9 @@ it never skips.  It needs one CUDA device and imports no JAX.
 ``train``: one trainer's CLI (``main``) at its defaults with ``--out`` in
   ``weights/exported/card/``: render and train seconds apart, the loss
   curve, peak bytes, its ``evaluate_*`` report beside the report of the
-  exported (JAX-trained) weights on the same held-out seeds.
+  committed (JAX-trained) weights on the same held-out seeds.
 ``bench``: the synthetic benchmark of the card-trained weights beside the
-  exported ones on the same 24 scenes, in bfloat16.
+  committed ones on the same 24 scenes, in bfloat16.
 ``scenes-diff NPZ`` (any machine, no card): this machine's seed-0 renders
   against the ones a card run wrote (``chiprun_out/trained_on_card/
   scenes_seed0.npz``), with Pillow's default and basic text layouts.
@@ -62,6 +64,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from chip_smoke import parses_equal, tf32_off, with_dtype  # noqa: E402
 from omniparser_tpu_torch.pipeline import EXPORT_DIR  # noqa: E402
 
 EXPORTS = ("det_synth.npz", "ocr_en_synth.npz", "cap_synth.npz")
@@ -96,19 +99,16 @@ CPU_BF16_ROWS_777555 = tuple(c == "1" for c in "11111111111111111111111111111111
 
 
 def require_inputs(export_dir: str = EXPORT_DIR) -> None:
-    """Raise where the exported weights or the carried faces are missing."""
+    """Raise where the carried faces are missing (the trained weights are
+    the committed trees, which 'auto' reads and names where missing)."""
     from omniparser_tpu_torch.train import synth_text
 
-    missing = [os.path.join(export_dir, n) for n in EXPORTS
-               if not os.path.exists(os.path.join(export_dir, n))]
     manifest = os.path.join(export_dir, "fonts", synth_text.FONT_MANIFEST)
     if not synth_text.carried_fonts(os.path.dirname(manifest)):
-        missing.append(manifest)
-    if missing:
         raise FileNotFoundError(
-            f"missing {', '.join(missing)}: write them with `python "
-            "scripts/export_torch_weights.py` on a machine with the JAX package and TTF faces, "
-            "and run this script from a copy of the repository that carries them")
+            f"missing {manifest}: write it with `python scripts/export_torch_weights.py` on a "
+            "machine with TTF faces, and run this script from a copy of the repository that "
+            "carries it")
     synth_text.require_fonts()
 
 
@@ -130,16 +130,6 @@ def emit(step: str, **fields) -> None:
 def sync(dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
-
-
-@contextlib.contextmanager
-def tf32_off():
-    was = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
 
 
 # ------------------------------------------------------------------ #
@@ -185,14 +175,6 @@ def parse_screens(seeds=PARSE_SEEDS, size=PARSE_SIZE):
     return [render_gui_scene(np.random.default_rng(s), size=size)[0] for s in seeds]
 
 
-def with_dtype(cfg, dtype: str):
-    """`cfg` with the detector, OCR and captioner in `dtype`."""
-    return dataclasses.replace(
-        cfg, detector=dataclasses.replace(cfg.detector, dtype=dtype),
-        ocr=dataclasses.replace(cfg.ocr, dtype=dtype),
-        captioner=dataclasses.replace(cfg.captioner, dtype=dtype))
-
-
 def bench_config(cfg):
     """eval/synth_bench's pipeline: the detector at the scenes' 640."""
     return dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector,
@@ -219,24 +201,6 @@ def parse_all(pipe, images):
             _, _, elements = pipe.parse_image(img)
             out.append((elements, dict(pipe.last_counts)))
     return out
-
-
-def parses_equal(got, want, atol: float = BOX_ATOL):
-    """Per image: the first differing field (texts and captions exact, boxes
-    within atol), caption texts apart, and the counts that differ."""
-    from chip_smoke import same_elements
-
-    rows = []
-    for (ea, ca), (eb, cb) in zip(got, want):
-        field, flips = same_elements(ea, eb, atol)
-        box = max((max(abs(x - y) for x, y in zip(a["bbox"], b["bbox"]))
-                   for a, b in zip(ea, eb)), default=0.0)
-        rows.append({"elements": len(ea), "first_difference": field, "caption_flips": flips,
-                     "max_box_diff": box,
-                     "counts_differing": {k: [ca[k], cb.get(k)] for k in ca if ca[k] != cb.get(k)}})
-    ok = all(r["first_difference"] is None and not r["caption_flips"] and not r["counts_differing"]
-             for r in rows)
-    return ok, rows
 
 
 def stage_profile(pipe, images, dev, profile: bool = True):
@@ -587,8 +551,8 @@ def run_trainer(trainer: str, out_dir: str, argv=(), dev="cuda"):
 
 
 def evaluate_export(trainer: str, path: str, dev="cuda", eval_kw=None):
-    """The trainer's ``evaluate_*`` reports of the networks in an exported
-    .npz (``'auto'``: the JAX-trained export), on the default held-out
+    """The trainer's ``evaluate_*`` reports of the networks in a checkpoint
+    (``'auto'``: the committed JAX-trained tree), on the default held-out
     seeds; `eval_kw` ({'det'|'rec'|'cap': kwargs}) shrinks them."""
     from omniparser_tpu_torch.config import CaptionerConfig, OcrConfig
     from omniparser_tpu_torch.models.ocr import TorchOCR

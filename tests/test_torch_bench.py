@@ -175,11 +175,27 @@ def test_flop_counts_against_the_jax_cost_analysis():
 
 
 def test_exported_weights_missing_raise(tmp_path, monkeypatch):
+    """The default weights are the committed trees: where they are missing
+    the benchmark raises naming the tree, before any work."""
     from omniparser_tpu_torch import pipeline
 
-    monkeypatch.setattr(pipeline, "EXPORT_DIR", str(tmp_path))
-    with pytest.raises(FileNotFoundError, match="scripts/export_torch_weights.py"):
-        bench_torch.main(["--device", "cpu", "--weights", "exported"])
+    assert bench_torch.parse_args([]).weights == "trained"
+    assert bench_torch.require_trees() == {
+        "detector_weights": os.path.join("omniparser_tpu", "weights", "det_synth"),
+        "ocr_weights": os.path.join("omniparser_tpu", "weights", "ocr_en_synth")}
+    monkeypatch.setattr(pipeline, "TRAINED_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match=str(tmp_path / "det_synth")):
+        bench_torch.main(["--device", "cpu"])
+
+
+def test_rendered_inputs_need_the_faces(monkeypatch):
+    """Rendered scenes need a TTF face (here, or the carried set): without
+    one the benchmark raises naming where it looked, before any work."""
+    from omniparser_tpu_torch.train import synth_text
+
+    monkeypatch.setattr(synth_text, "_FONT_FILES", [])
+    with pytest.raises(RuntimeError, match="fonts.json"):
+        bench_torch.main(["--device", "cpu", "--weights", "seeded"])
 
 
 def test_bench_without_a_card_exits_non_zero():

@@ -307,18 +307,43 @@ def test_omniparser_config_dict_loads_upstream_checkpoints(yolo_files, hf_dir, r
     ("captioner_weights", "cap_synth")])
 def test_orbax_directory_raises(field, checkpoint):
     """The JAX package's own checkpoints are orbax trees, which the port
-    cannot read: a ValueError that names the export script."""
+    once refused; it now reads them without JAX (weights/orbax_read.py):
+    the directory given as a weight field loads, and each network's state
+    equals the conversion of the JAX package's load_checkpoint of it."""
     import dataclasses
 
     import omniparser_tpu.weights as jweights
+    from omniparser_tpu.weights.checkpoints import load_checkpoint
+    from omniparser_tpu_torch.weights import convert
+    from omniparser_tpu_torch.weights.convert import flatten_variables
 
     path = os.path.join(os.path.dirname(jweights.__file__), checkpoint)
     assert os.path.isdir(path)
     cfg = tcfg.PipelineConfig(detector_weights=None, ocr_weights=None, captioner_weights=None,
+                              detector=tcfg.DetectorConfig(dtype="float32"),
+                              ocr=tcfg.OcrConfig(dtype="float32"),
                               captioner=tcfg.CaptionerConfig(dtype="float32"))
     cfg = dataclasses.replace(cfg, **{field: path})
-    with pytest.raises(ValueError, match="export_torch_weights.py"):
-        SOMPipeline(cfg, device="cpu", captioner_dims=tflo.FlorenceDims(**TINY))
+    pipe = SOMPipeline(cfg, device="cpu", captioner_dims=tflo.FlorenceDims(**TINY))
+    jax_tree = load_checkpoint(path)
+    if checkpoint == "det_synth":
+        pairs = [(pipe.det_module, convert.convert_yolov8(flatten_variables(jax_tree["det"])))]
+    elif checkpoint == "ocr_en_synth":
+        pairs = [(pipe.ocr.det, convert.convert_text_detector(flatten_variables(jax_tree["det"]))),
+                 (pipe.ocr.rec,
+                  convert.convert_text_recognizer(flatten_variables(jax_tree["rec"])))]
+    else:
+        with open(os.path.join(path, "dims.json")) as f:
+            raw = json.load(f)
+        dims = pipe.captioner.dims
+        assert dims.d_model == raw["d_model"] and list(dims.patch_prenorm) == raw["patch_prenorm"]
+        pairs = [(pipe.captioner.model,
+                  convert.convert_florence2(flatten_variables(jax_tree["cap"]), dims))]
+    for module, want in pairs:
+        got = module.state_dict()
+        assert sorted(k for k in got if not k.endswith("num_batches_tracked")) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
 
 
 def test_chip_smoke_writes_upstream_checkpoints_the_loaders_read(tmp_path):

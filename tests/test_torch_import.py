@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "orbax", "omniparser_tpu", "cv2", "PIL", "regex")
+FORBIDDEN = ("jax", "flax", "orbax", "tensorstore", "omniparser_tpu", "cv2", "PIL", "regex")
 
 
 def _port_modules():
@@ -261,6 +261,39 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# the twelfth slice: the orbax reader and its zstd decoder, and the modules
+# whose 'auto' weights now read the committed trees through them
+SLICE12_MODULES = ("weights/orbax_read.py", "utils/zstd.py", "weights/checkpoints.py",
+                   "pipeline.py", "ocr.py")
+
+
+@pytest.mark.parametrize("rel", SLICE12_MODULES)
+def test_the_checkpoint_reader_imports_none_of_jax_orbax_or_tensorstore(rel):
+    """Walked by the subprocess check above, named in no import statement,
+    and reading the three committed trees pulls none of them in (nor any
+    zstd module: the decoder is the port's own C++)."""
+    name = "omniparser_tpu_torch." + rel[:-3].replace("/", ".")
+    assert name in set(_port_modules())
+    roots = _imported_roots(os.path.join(ROOT, "omniparser_tpu_torch", rel))
+    # cv2 and PIL may be imported inside functions (checked below)
+    assert not roots & (set(FORBIDDEN) - {"cv2", "PIL"} | {"zstandard", "compression"}), roots
+    if rel != "weights/orbax_read.py":
+        return
+    code = (
+        "import sys\n"
+        "from omniparser_tpu_torch.weights.orbax_read import read_orbax_tree\n"
+        "for t in ('det_synth', 'ocr_en_synth', 'cap_synth'):\n"
+        "    read_orbax_tree('omniparser_tpu/weights/' + t)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('zstandard', 'compression')!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 # the eleventh slice: the port's benchmark and demo

@@ -8,6 +8,8 @@ in the package changes), so that both sides compute in float32.
 """
 
 import base64
+import os
+import shutil
 
 import numpy as np
 import jax
@@ -200,14 +202,51 @@ def test_parse_batch_equals_parse_image_per_image(rng):
 
 
 def test_auto_weights_raise_where_the_export_is_missing(tmp_path, monkeypatch):
-    """'auto' never falls back to untrained networks: only None asks for a seed."""
+    """'auto' never falls back to untrained networks, to the export or to a
+    seed: where TRAINED_DIR lacks the committed tree it raises naming it;
+    only None asks for a seed."""
     from omniparser_tpu_torch import pipeline as tpipe
 
-    monkeypatch.setattr(tpipe, "EXPORT_DIR", str(tmp_path))
+    committed = tpipe.TRAINED_DIR
+    monkeypatch.setattr(tpipe, "TRAINED_DIR", str(tmp_path))
     cfg = tcfg.PipelineConfig(captioner=tcfg.CaptionerConfig(backend="null"),
                               ocr=tcfg.OcrConfig(backend="null"))
     assert cfg.detector_weights == "auto"
-    with pytest.raises(FileNotFoundError, match="export_torch_weights.py"):
+    with pytest.raises(FileNotFoundError, match=str(tmp_path / "det_synth")):
+        SOMPipeline(cfg, device="cpu")
+    cfg = tcfg.PipelineConfig(captioner=tcfg.CaptionerConfig(backend="null"),
+                              detector_weights=None)
+    with pytest.raises(FileNotFoundError, match="trained tree .*ocr_en_synth"):
+        SOMPipeline(cfg, device="cpu")
+    cfg = tcfg.PipelineConfig(ocr=tcfg.OcrConfig(backend="null"), detector_weights=None)
+    (tmp_path / "cap_synth").mkdir()  # a directory, but no orbax tree in it
+    with pytest.raises(FileNotFoundError, match="trained tree .*cap_synth"):
+        SOMPipeline(cfg, device="cpu")
+    (tmp_path / "cap_synth").rmdir()  # an orbax tree without dims.json beside it
+    shutil.copytree(os.path.join(committed, "det_synth"), tmp_path / "cap_synth")
+    with pytest.raises(ValueError, match="cap_synth, which does not fit .*dims.json"):
+        SOMPipeline(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["detector_variant", "detector_classes", "ocr_lines"])
+def test_auto_weights_raise_where_the_tree_does_not_fit(case):
+    """The JAX defaults' own conditions: det_synth is a YOLOv8-n of one
+    class, ocr_en_synth reads 32x480 lines; elsewhere 'auto' raises naming
+    the tree."""
+    null = dict(captioner=tcfg.CaptionerConfig(backend="null"))
+    if case == "detector_variant":
+        cfg = tcfg.PipelineConfig(detector=tcfg.DetectorConfig(variant="s"),
+                                  ocr=tcfg.OcrConfig(backend="null"), **null)
+        name = "det_synth"
+    elif case == "detector_classes":
+        cfg = tcfg.PipelineConfig(detector=tcfg.DetectorConfig(num_classes=3),
+                                  ocr=tcfg.OcrConfig(backend="null"), **null)
+        name = "det_synth"
+    else:
+        cfg = tcfg.PipelineConfig(ocr=tcfg.OcrConfig(rec_max_width=320), detector_weights=None,
+                                  **null)
+        name = "ocr_en_synth"
+    with pytest.raises(ValueError, match=f"trained tree {name}, which does not fit"):
         SOMPipeline(cfg, device="cpu")
 
 
