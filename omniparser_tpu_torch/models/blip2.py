@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from omniparser_tpu_torch.config import CaptionerConfig
 from omniparser_tpu_torch.models.generate import beam_search
+from omniparser_tpu_torch.utils.profiling import recorder
 
 LN_EPS = 1e-6  # flax LayerNorm's default
 
@@ -304,23 +305,25 @@ def blip2_generate(model: Blip2, pixel_values, prompt_ids, max_new_tokens: int =
     d = model.dims
     b = pixel_values.shape[0]
     prefix = d.num_query_tokens + prompt_ids.shape[1]
-    last_logits, caches, _ = model.encode_and_prefill(pixel_values, prompt_ids,
-                                                      prefix + max_new_tokens)
     k = num_beams
-    for entry in caches:  # beams fold into the batch, beam-major within a row
-        for j, c in enumerate(entry):
-            entry[j] = c.repeat_interleave(k, dim=0)
+    with recorder.span("caption.vision", pixel_values.device):
+        last_logits, caches, _ = model.encode_and_prefill(pixel_values, prompt_ids,
+                                                          prefix + max_new_tokens)
+        for entry in caches:  # beams fold into the batch, beam-major within a row
+            for j, c in enumerate(entry):
+                entry[j] = c.repeat_interleave(k, dim=0)
 
     def decode_step(flat_tokens, s, caches):
         return model.decode_one(flat_tokens, s, prefix, caches), caches
 
-    return beam_search(
-        decode_step, last_logits[:, -1], caches, b, k, max_new_tokens, d.vocab_size,
-        eos_token_id=d.eos_token_id, pad_token_id=d.pad_token_id,
-        length_penalty=length_penalty, no_repeat_ngram_size=no_repeat_ngram_size,
-        # decoder-only semantics: the text prompt joins the n-gram scan and
-        # the length normalisation (the query embeds have no token ids)
-        prompt_tokens=prompt_ids, length_offset=prompt_ids.shape[1])
+    with recorder.span("caption.beam", pixel_values.device):
+        return beam_search(
+            decode_step, last_logits[:, -1], caches, b, k, max_new_tokens, d.vocab_size,
+            eos_token_id=d.eos_token_id, pad_token_id=d.pad_token_id,
+            length_penalty=length_penalty, no_repeat_ngram_size=no_repeat_ngram_size,
+            # decoder-only semantics: the text prompt joins the n-gram scan and
+            # the length normalisation (the query embeds have no token ids)
+            prompt_tokens=prompt_ids, length_offset=prompt_ids.shape[1])
 
 
 # CLIP normalisation (HF Blip2Processor)

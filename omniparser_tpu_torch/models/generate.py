@@ -22,6 +22,8 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from omniparser_tpu_torch.utils.profiling import recorder
+
 NEG_INF = -1e9
 
 
@@ -49,10 +51,14 @@ def ban_repeated_bigrams(tokens: torch.Tensor, last: torch.Tensor, length: int,
 def reorder_caches_(caches: List, index: torch.Tensor) -> None:
     """Gather every cache tensor's leading (beam-flattened) dim by `index`,
     in place in the list: each entry is a list of tensors, replaced one at
-    a time so that only one old tensor is alive beside its copy."""
+    a time so that only one old tensor is alive beside its copy.  The
+    recorder's ``beam.reorder_bytes`` counts the bytes read and written."""
     for entry in caches:
         for j, c in enumerate(entry):
             entry[j] = c.index_select(0, index)
+    if recorder.on:  # each row is read once and its copy written once
+        recorder.count("beam.reorder_bytes",
+                       sum(2 * c.numel() * c.element_size() for entry in caches for c in entry))
 
 
 @torch.no_grad()

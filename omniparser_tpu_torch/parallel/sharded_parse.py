@@ -48,6 +48,7 @@ from omniparser_tpu_torch.pipeline import (
     ocr_candidates,
     recognise_lines,
 )
+from omniparser_tpu_torch.utils.profiling import recorder
 
 CAP_BUCKETS = (8, 16, 32, 64, 128)
 
@@ -94,6 +95,7 @@ class ShardedParse:
         self._cap = (row_captioners(pipeline._florence, mesh)
                      if pipeline._florence is not None else None)
         self.last_timings: Dict[str, float] = {}
+        self.last_trace = None  # as SOMPipeline.last_trace
 
     @torch.no_grad()
     def parse_images(self, images: Sequence[np.ndarray]) -> List:
@@ -107,19 +109,21 @@ class ShardedParse:
 
         # a shared bucket and ONE stacked host->device upload
         ctxs, padded_list = [], []
-        for img in images:
-            padded, upload, h, w, uh, uw = p._host_pad(img)
-            padded_list.append(padded)
-            ctxs.append({"image": img, "upload_img": upload, "h": h, "w": w, "uh": uh, "uw": uw})
-        hb = max(x.shape[0] for x in padded_list)
-        wb = max(x.shape[1] for x in padded_list)
-        batch = np.zeros((b, hb, wb, 3), np.uint8)
-        hws = [(1, 1)] * b
-        true_hws = [(1, 1)] * b
-        for i, (ctx, padded) in enumerate(zip(ctxs, padded_list)):
-            batch[i, : padded.shape[0], : padded.shape[1]] = padded
-            hws[i], true_hws[i] = (ctx["uh"], ctx["uw"]), (ctx["h"], ctx["w"])
-        shards = batch_sharding(self.mesh).shard(batch)
+        with recorder.span("upload"):
+            for i, img in enumerate(images):
+                padded, upload, h, w, uh, uw = p._host_pad(img)
+                padded_list.append(padded)
+                ctxs.append({"image": img, "index": i, "upload_img": upload, "h": h, "w": w,
+                             "uh": uh, "uw": uw})
+            hb = max(x.shape[0] for x in padded_list)
+            wb = max(x.shape[1] for x in padded_list)
+            batch = np.zeros((b, hb, wb, 3), np.uint8)
+            hws = [(1, 1)] * b
+            true_hws = [(1, 1)] * b
+            for i, (ctx, padded) in enumerate(zip(ctxs, padded_list)):
+                batch[i, : padded.shape[0], : padded.shape[1]] = padded
+                hws[i], true_hws[i] = (ctx["uh"], ctx["uw"]), (ctx["h"], ctx["w"])
+            shards = batch_sharding(self.mesh).shard(batch)
         frames = [shards[i // step][i % step] for i in range(b)]
         rows = [range(r * step, (r + 1) * step) for r in range(dp)]
         for i, ctx in enumerate(ctxs):  # the finish's overflow captions crop from it
@@ -144,7 +148,8 @@ class ShardedParse:
                 out["cc_count"] = cc_count
             out_dev.append(out)
         crops = [o.pop("crops", None) for o in out_dev]
-        host = [{k: v.cpu().numpy() for k, v in o.items()} for o in out_dev]
+        with recorder.span("download"):
+            host = [{k: v.cpu().numpy() for k, v in o.items()} for o in out_dev]
         t["dispatch"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -168,6 +173,7 @@ class ShardedParse:
             results.append((annotated, ctx["label_coordinates"], ctx["elements"]))
         t["finish"] = time.perf_counter() - t0
         self.last_timings = t
+        self.last_trace = recorder.take()
         return results
 
     def _candidates(self, frames, hws, ctxs, rows):
@@ -181,7 +187,8 @@ class ShardedParse:
             out = []
             for r, ocr in enumerate(self._ocr):
                 for i in rows[r]:
-                    cc, lb_r, pads = ocr.dispatch_det(frames[i], hws[i])
+                    with recorder.span("ocr_detect", frames[i].device, i):
+                        cc, lb_r, pads = ocr.dispatch_det(frames[i], hws[i])
                     out.append((*ocr_candidates(cfg, cc["boxes"], cc["count"], lb_r, pads,
                                                 hws[i], True), cc["count"]))
             for ctx in ctxs:
@@ -193,8 +200,10 @@ class ShardedParse:
         boxes_px = [[] for _ in range(b)]
         step = b // len(rows)
         if self._ocr is not None:  # every detector before any candidate download
-            futs = [self._ocr[i // step].dispatch_det(frames[i], hws[i])
-                    for i in range(len(ctxs))]
+            futs = []
+            for i in range(len(ctxs)):
+                with recorder.span("ocr_detect", frames[i].device, i):
+                    futs.append(self._ocr[i // step].dispatch_det(frames[i], hws[i]))
             for i, ctx in enumerate(ctxs):
                 boxes_px[i] = self._ocr[i // step].candidates_from_prob(
                     *futs[i], ctx["uh"], ctx["uw"])
@@ -239,7 +248,11 @@ class ShardedParse:
         with parametrize.cached():  # each split parameter gathered once a decode
             for r, cap in enumerate(self._cap):
                 flat = torch.stack([crops[i][:kb] for i in rows[r]]).reshape(-1, cs, cs, 3)
-                tokens, logp = cap.generate(flat)
+                with recorder.span("caption.batched", flat.device):
+                    tokens, logp = cap.generate(flat)
+                recorder.count("caption.slots", flat.shape[0])
+                recorder.count("caption.served",
+                               sum(int(host[i]["cap_valid"].sum()) for i in rows[r]))
                 tokens = tokens.cpu().numpy().reshape(len(rows[r]), kb, -1)
                 logp = logp.cpu().numpy().reshape(len(rows[r]), kb)
                 for j, i in enumerate(rows[r]):
@@ -258,6 +271,10 @@ class ShardedServingPipeline:
     @property
     def last_timings(self) -> Dict[str, float]:
         return self.sharded.last_timings
+
+    @property
+    def last_trace(self):
+        return self.sharded.last_trace
 
     def parse_batch(self, images: Sequence[np.ndarray]):
         return self.sharded.parse_images(images)

@@ -63,6 +63,7 @@ from omniparser_tpu_torch.ops.preprocess import (
     pick_bucket_2d,
 )
 from omniparser_tpu_torch.utils.device import resolve_device
+from omniparser_tpu_torch.utils.profiling import recorder
 
 EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights", "exported")
 # the trained orbax trees the repository ships beside the JAX package
@@ -91,20 +92,25 @@ def _make_element(typ, bbox, interactivity, content, source) -> Dict:
 
 
 class _Stopwatch:
-    """Per-stage milliseconds; on a CUDA device each lap ends with a
-    synchronise, so it is off unless a caller asks for stage times."""
+    """Laps of a stage, each a span of the recorder named ``lap.<name>``.
+    With a sink (``SOMPipeline.stage_ms``) each lap also adds its
+    milliseconds to sink[name] and, on a CUDA device, ends with a
+    synchronise, so its span is the lap's device time; without one it is
+    the host's dispatch of the lap.  Off when neither asks for laps."""
 
     def __init__(self, sink: Optional[Dict[str, float]], device: torch.device):
         self.sink, self.device = sink, device
-        self.t0 = time.perf_counter()
+        self.t0 = time.perf_counter() if sink is not None or recorder.on else None
 
     def lap(self, name: str) -> None:
-        if self.sink is None:
+        if self.t0 is None:
             return
-        if self.device.type == "cuda":
+        if self.sink is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.sink[name] = self.sink.get(name, 0.0) + (now - self.t0) * 1e3
+        recorder.record("lap." + name, self.t0, now)
+        if self.sink is not None:
+            self.sink[name] = self.sink.get(name, 0.0) + (now - self.t0) * 1e3
         self.t0 = now
 
 
@@ -559,12 +565,30 @@ class SOMPipeline:
         # to decode after the download
         self._step_decodes = self._florence is not None and not config.captioner.split_decode
         self.last_timings: Dict[str, float] = {}
+        # the last image's counts
         self.last_counts: Dict[str, int] = {}
+        # the recorder's spans and counters of the last parse_image or
+        # parse_batch (utils/profiling.Trace), None while it is off
+        self.last_trace = None
         # parse_batch: the slots of each decode chunk of the last batch
         self.last_decode_chunks: List[int] = []
-        # set to a dict to collect the fused step's per-stage milliseconds
-        # (each stage then ends with a device synchronise)
-        self.stage_ms: Optional[Dict[str, float]] = None
+        self._stage_ms: Optional[Dict[str, float]] = None
+
+    @property
+    def stage_ms(self) -> Optional[Dict[str, float]]:
+        """Set to a dict to collect per-stage milliseconds (each stage then
+        ends with a device synchronise).  Asking for stage times also turns
+        the span recorder on, so the synchronised laps and every other span
+        land in ``last_trace``; setting None turns both off."""
+        return self._stage_ms
+
+    @stage_ms.setter
+    def stage_ms(self, sink: Optional[Dict[str, float]]) -> None:
+        self._stage_ms = sink
+        if sink is None:
+            recorder.disable()
+        else:
+            recorder.enable()
 
     # ------------------------------------------------------------------ #
 
@@ -573,6 +597,7 @@ class SOMPipeline:
                        ) -> Tuple[Dict[str, List[float]], List[Dict]]:
         """np RGB uint8 -> (label_coordinates, element list), no overlay."""
         ctx = self._run(image_rgb, box_threshold, iou_threshold)
+        self.last_trace = recorder.take()
         return ctx["label_coordinates"], ctx["elements"]
 
     def parse_image(self, image_rgb: np.ndarray, box_threshold: Optional[float] = None,
@@ -588,6 +613,7 @@ class SOMPipeline:
         t0 = time.perf_counter()
         annotated = self._overlay(ctx, som_style)
         self.last_timings["annotate"] = time.perf_counter() - t0
+        self.last_trace = recorder.take()
         return annotated, ctx["label_coordinates"], ctx["elements"]
 
     def _run(self, image_rgb, box_threshold, iou_threshold) -> Dict:
@@ -598,7 +624,7 @@ class SOMPipeline:
         t0 = time.perf_counter()
         if self._fused_ocr:
             watch = _Stopwatch(self.stage_ms, self.device)
-            ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
+            self._stage_ocr_detect(ctx)
             watch.lap("ocr_detect")
         else:
             self._stage_ocr(ctx)
@@ -640,13 +666,22 @@ class SOMPipeline:
         padded, _ = pad_to_bucket(upload, hb, wb)
         return padded, upload, h, w, uh, uw
 
-    def _stage_upload(self, image_rgb: np.ndarray) -> Dict:
-        padded, upload, h, w, uh, uw = self._host_pad(image_rgb)
-        return {
-            "image": image_rgb, "h": h, "w": w, "uh": uh, "uw": uw,
-            "upload_img": upload,
-            "padded_dev": torch.from_numpy(padded).to(self.device),  # the one upload
-        }
+    def _stage_upload(self, image_rgb: np.ndarray, index: int = 0) -> Dict:
+        """`index`: the image's place in its call, which its spans carry."""
+        with recorder.span("upload", image=index):
+            padded, upload, h, w, uh, uw = self._host_pad(image_rgb)
+            return {
+                "image": image_rgb, "index": index, "h": h, "w": w, "uh": uh, "uw": uw,
+                "upload_img": upload,
+                "padded_dev": torch.from_numpy(padded).to(self.device),  # the one upload
+            }
+
+    def _stage_ocr_detect(self, ctx: Dict) -> None:
+        """Dispatch the first-party text detector (letterbox, network and,
+        with device components, the components); its outputs stay on the
+        device in ctx["ocr_fut"]."""
+        with recorder.span("ocr_detect", self.device, ctx["index"]):
+            ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
 
     def parse_batch(self, images: Sequence[np.ndarray]
                     ) -> List[Tuple[np.ndarray, Dict[str, List[float]], List[Dict]]]:
@@ -664,17 +699,16 @@ class SOMPipeline:
         t0 = time.perf_counter()
         if self._fused_ocr:
             ctxs = []
-            for img in images:
-                ctx = self._stage_upload(img)
-                ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"], (ctx["uh"], ctx["uw"]))
+            for i, img in enumerate(images):
+                ctx = self._stage_upload(img, i)
+                self._stage_ocr_detect(ctx)
                 ctx["crops_dev"] = self._stage_dispatch(ctx, None, None)
                 ctxs.append(ctx)
         else:
-            ctxs = [self._stage_upload(img) for img in images]
+            ctxs = [self._stage_upload(img, i) for i, img in enumerate(images)]
             if self._torch_ocr is not None:
                 for ctx in ctxs:  # every detector before any candidate download
-                    ctx["ocr_fut"] = self.ocr.dispatch_det(ctx["padded_dev"],
-                                                           (ctx["uh"], ctx["uw"]))
+                    self._stage_ocr_detect(ctx)
             for ctx in ctxs:
                 self._stage_ocr(ctx)
                 ctx["crops_dev"] = self._stage_dispatch(ctx, None, None)
@@ -696,6 +730,7 @@ class SOMPipeline:
             results.append((ctx["annotated"], ctx["label_coordinates"], ctx["elements"]))
         t["decode"] = time.perf_counter() - t0
         self.last_timings = t
+        self.last_trace = recorder.take()
         return results
 
     def warmup(self, shapes: Sequence[Tuple[int, int]] = ((1080, 1920), (2160, 3840)),
@@ -726,10 +761,9 @@ class SOMPipeline:
         watch = _Stopwatch(self.stage_ms, self.device)
         host_texts = None
         if self._torch_ocr is not None:
-            fut = ctx.pop("ocr_fut", None)
-            if fut is None:
-                fut = self.ocr.dispatch_det(ctx["padded_dev"], (uh, uw))
-            boxes_px = self._torch_ocr.candidates_from_prob(*fut, uh, uw)
+            if "ocr_fut" not in ctx:
+                self._stage_ocr_detect(ctx)
+            boxes_px = self._torch_ocr.candidates_from_prob(*ctx.pop("ocr_fut"), uh, uw)
             frame_wh = (uw, uh)
         else:
             # host backends see the original image: normalise by its dims
@@ -765,13 +799,14 @@ class SOMPipeline:
             ocr_a = torch.from_numpy(ctx["ocr_arr"]).to(self.device)
             ocr_b = torch.from_numpy(ctx["ocr_cand_valid"]).to(self.device)
             r, pads = 0.0, (0.0, 0.0)
-        out = fused_parse_step(
-            cfg, self.detector, self.det_module, self._torch_ocr, self._florence is not None,
-            ctx["padded_dev"], (ctx["uh"], ctx["uw"]), (ctx["h"], ctx["w"]),
-            ocr_a, ocr_b, r, pads,
-            box_threshold, cfg.detector.nms_iou_threshold, iou_threshold,
-            cfg.ocr.text_threshold, self._fused_ocr, self.stage_ms,
-            decode_with=self._florence if self._step_decodes else None)
+        with recorder.span("fused_step", self.device, ctx["index"]):
+            out = fused_parse_step(
+                cfg, self.detector, self.det_module, self._torch_ocr, self._florence is not None,
+                ctx["padded_dev"], (ctx["uh"], ctx["uw"]), (ctx["h"], ctx["w"]),
+                ocr_a, ocr_b, r, pads,
+                box_threshold, cfg.detector.nms_iou_threshold, iou_threshold,
+                cfg.ocr.text_threshold, self._fused_ocr, self.stage_ms,
+                decode_with=self._florence if self._step_decodes else None)
         crops_dev = out.pop("crops", None)  # stays on the device
         if "cc_count" in ctx:
             out["cc_count"] = ctx.pop("cc_count")
@@ -780,18 +815,20 @@ class SOMPipeline:
 
     def _download(self, ctx: Dict) -> None:
         """The one download of a fused step's outputs (all but the crops)."""
-        ctx["out"] = {k: v.cpu().numpy() for k, v in ctx.pop("out_dev").items()}
+        with recorder.span("download", image=ctx["index"]):
+            ctx["out"] = {k: v.cpu().numpy() for k, v in ctx.pop("out_dev").items()}
 
     def _dispatch_decode(self, ctx: Dict, crops_dev) -> None:
         """Greedy-decode only the smallest power-of-2 slot bucket (from 8)
         covering this image's content-less icon count; the compaction in
         the fused step packed them first.  Zero need => no decode.  With
         single-step decode the step has decoded all K slots already."""
-        ctx["kb"] = self.config.captioner.batch_size if "cap_tokens" in ctx["out"] else 0
-        if crops_dev is None or "cap_valid" not in ctx["out"]:
-            return
-        need = int(ctx["out"]["cap_valid"].sum())
-        if need == 0:
+        out = ctx["out"]
+        ctx["kb"] = self.config.captioner.batch_size if "cap_tokens" in out else 0
+        need = int(out["cap_valid"].sum()) if "cap_valid" in out else 0
+        if ctx["kb"]:  # the fused step decoded all K slots
+            self._count_slots(ctx["kb"], need)
+        if crops_dev is None or need == 0:
             return
         kb = 8
         while kb < need:
@@ -799,14 +836,23 @@ class SOMPipeline:
         kb = min(kb, self.config.captioner.batch_size)
         ctx["kb"] = kb
         watch = _Stopwatch(self.stage_ms, self.device)
-        ctx["tokens_fut"] = self._florence.generate(crops_dev[:kb])
+        with recorder.span("caption.batched", self.device):
+            ctx["tokens_fut"] = self._florence.generate(crops_dev[:kb])
+        self._count_slots(kb, need)
         watch.lap("decode")
 
     def _collect_decode(self, ctx: Dict) -> None:
         fut = ctx.pop("tokens_fut", None)
         if fut is not None:
-            ctx["out"]["cap_tokens"] = fut[0].cpu().numpy()
-            ctx["out"]["cap_logp"] = fut[1].cpu().numpy()
+            with recorder.span("caption.collect"):
+                ctx["out"]["cap_tokens"] = fut[0].cpu().numpy()
+                ctx["out"]["cap_logp"] = fut[1].cpu().numpy()
+
+    @staticmethod
+    def _count_slots(slots: int, served: int) -> None:
+        """Caption slots decoded (padding included) and captions served."""
+        recorder.count("caption.slots", slots)
+        recorder.count("caption.served", served)
 
     # parse_batch's cross-image caption decode: every image's needed slots
     # (the compaction put them first) in one decode per chunk of at most
@@ -816,41 +862,45 @@ class SOMPipeline:
     def _dispatch_decode_batch(self, ctxs: Sequence[Dict]):
         """Dispatch the batched decode -> (per-chunk (tokens, logp, take)
         on the device, per-image (ctx, offset, need)), or None."""
-        parts, offs, off = [], [], 0
-        for ctx in ctxs:
-            crops = ctx.pop("crops_dev", None)
-            if crops is None or "cap_valid" not in ctx["out"]:
-                continue
-            need = int(ctx["out"]["cap_valid"].sum())
-            if need:
-                parts.append(crops[:need])
-                offs.append((ctx, off, need))
-                off += need
-        self.last_decode_chunks = []
-        if not parts:
-            return None
-        slots = torch.cat(parts) if len(parts) > 1 else parts[0]
-        futs = []
-        watch = _Stopwatch(self.stage_ms, self.device)
-        for s in range(0, off, self._DECODE_CHUNK):
-            sel = slots[s:s + self._DECODE_CHUNK]
-            take = sel.shape[0]
-            kb = 8
-            while kb < take:
-                kb *= 2
-            if take < kb:
-                sel = torch.cat([sel, sel.new_zeros((kb - take,) + tuple(sel.shape[1:]))])
-            futs.append((*self._florence.generate(sel), take))
-            self.last_decode_chunks.append(take)
-        watch.lap("decode")
-        return futs, offs
+        with recorder.span("caption.dispatch"):
+            parts, offs, off = [], [], 0
+            for ctx in ctxs:
+                crops = ctx.pop("crops_dev", None)
+                if crops is None or "cap_valid" not in ctx["out"]:
+                    continue
+                need = int(ctx["out"]["cap_valid"].sum())
+                if need:
+                    parts.append(crops[:need])
+                    offs.append((ctx, off, need))
+                    off += need
+            self.last_decode_chunks = []
+            if not parts:
+                return None
+            slots = torch.cat(parts) if len(parts) > 1 else parts[0]
+            futs = []
+            watch = _Stopwatch(self.stage_ms, self.device)
+            with recorder.span("caption.batched", self.device):
+                for s in range(0, off, self._DECODE_CHUNK):
+                    sel = slots[s:s + self._DECODE_CHUNK]
+                    take = sel.shape[0]
+                    kb = 8
+                    while kb < take:
+                        kb *= 2
+                    if take < kb:
+                        sel = torch.cat([sel, sel.new_zeros((kb - take,) + tuple(sel.shape[1:]))])
+                    futs.append((*self._florence.generate(sel), take))
+                    self._count_slots(kb, take)
+                    self.last_decode_chunks.append(take)
+            watch.lap("decode")
+            return futs, offs
 
     def _collect_decode_batch(self, handle) -> None:
         if handle is None:
             return
         futs, offs = handle
-        tokens = np.concatenate([tok.cpu().numpy()[:n] for tok, _, n in futs])
-        logp = np.concatenate([lp.cpu().numpy()[:n] for _, lp, n in futs])
+        with recorder.span("caption.collect"):
+            tokens = np.concatenate([tok.cpu().numpy()[:n] for tok, _, n in futs])
+            logp = np.concatenate([lp.cpu().numpy()[:n] for _, lp, n in futs])
         for ctx, off, need in offs:
             ctx["out"]["cap_tokens"] = tokens[off:off + need]
             ctx["out"]["cap_logp"] = logp[off:off + need]
@@ -892,6 +942,13 @@ class SOMPipeline:
     def _stage_finish(self, ctx: Dict):
         """Element assembly (host).  Returns the content-less icons as
         (detector slot, element) pairs for the caption fill."""
+        with recorder.span("assemble", image=ctx["index"]):
+            icon_plain = self._assemble(ctx)
+        recorder.count("ocr.lines", self.last_counts["ocr_candidates"])
+        recorder.count("caption.needed", len(icon_plain))
+        return icon_plain
+
+    def _assemble(self, ctx: Dict):
         cfg = self.config
         h, w = ctx["h"], ctx["w"]
         out = ctx["out"]
@@ -979,6 +1036,10 @@ class SOMPipeline:
 
     def _overlay(self, ctx: Dict, som_style: Optional[Dict]) -> np.ndarray:
         """The SOM overlay (cv2 drawing) on top of a finished parse."""
+        with recorder.span("overlay", image=ctx["index"]):
+            return self._draw(ctx, som_style)
+
+    def _draw(self, ctx: Dict, som_style: Optional[Dict]) -> np.ndarray:
         from omniparser_tpu_torch.annotate import annotate
 
         cfg = self.config
@@ -1023,11 +1084,13 @@ class SOMPipeline:
         valid = np.zeros(pad_n, bool)
         valid[: len(boxes_norm)] = True
         out: List[str] = []
-        for s in range(0, pad_n, bs):
-            crops = crop_resize_batch(
-                ctx["padded_dev"], (ctx["uh"], ctx["uw"]),
-                torch.from_numpy(arr[s: s + bs]).to(ctx["padded_dev"].device), cfg.crop_size)
-            out.extend(self.captioner.caption_crops(crops.to(self.device), valid[s: s + bs]))
+        with recorder.span("caption.boxes", self.device, ctx["index"]):
+            for s in range(0, pad_n, bs):
+                crops = crop_resize_batch(
+                    ctx["padded_dev"], (ctx["uh"], ctx["uw"]),
+                    torch.from_numpy(arr[s: s + bs]).to(ctx["padded_dev"].device), cfg.crop_size)
+                out.extend(self.captioner.caption_crops(crops.to(self.device), valid[s: s + bs]))
+        self._count_slots(pad_n, len(boxes_norm))
         return out
 
     def content_lines(self, elements) -> List[str]:

@@ -2,8 +2,11 @@
 
 Requests arriving within `batch_window_ms` of the first (up to
 `max_batch`) are handed to the process function together; callers block on
-futures.  One worker thread owns the card and runs every parse, so the
-pipeline needs no locks of its own:
+futures.  With the span recorder on (``utils/profiling.recorder``) each
+item's wait from `submit` to the start of its batch is a span
+``batcher.wait`` and each batch adds its size to ``batcher.batch_size``.
+One worker thread owns the card and runs every parse, so the pipeline
+needs no locks of its own:
 
   * the port's tensors carry an explicit device, so the worker thread
     needs no ``torch.cuda.set_device``;
@@ -25,6 +28,8 @@ import time
 from concurrent.futures import Future
 from typing import Callable, List, Sequence
 
+from omniparser_tpu_torch.utils.profiling import recorder
+
 
 class MicroBatcher:
     def __init__(
@@ -43,7 +48,7 @@ class MicroBatcher:
 
     def submit(self, item) -> Future:
         fut: Future = Future()
-        self._queue.put((item, fut))
+        self._queue.put((item, fut, time.perf_counter() if recorder.on else None))
         return fut
 
     def close(self):
@@ -91,6 +96,12 @@ class MicroBatcher:
                 continue
             items = [b[0] for b in batch]
             futures = [b[1] for b in batch]
+            if recorder.on:
+                start = time.perf_counter()
+                for i, b in enumerate(batch):
+                    if b[2] is not None:
+                        recorder.record("batcher.wait", b[2], start, i)
+                recorder.count("batcher.batch_size", len(items))
             try:
                 results = self._process(items)
                 if len(results) != len(items):  # silent drops would hang callers

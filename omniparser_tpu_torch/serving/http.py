@@ -4,7 +4,9 @@ Endpoints:
   POST /parse/  {"base64_image": ...} ->
       {"som_image_base64": ..., "parsed_content_list": [...], "latency": s}
   GET  /probe/  -> {"message": "Omniparser API ready"}
-  GET  /metrics -> counters and histograms (JSON; ?format=prometheus)
+  GET  /metrics -> counters and histograms (JSON; ?format=prometheus); with
+                   --trace also each span of the pipeline's recorder as
+                   span_<name>_seconds and each counter as <name>_total
   GET  / , /demo -> a one-page upload demo
 
 Implementation: stdlib ThreadingHTTPServer + MicroBatcher, so concurrent
@@ -24,7 +26,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from omniparser_tpu_torch.config import PipelineConfig, ServerConfig
+from omniparser_tpu_torch.utils.profiling import recorder
 
+# parse_batch sizes, in screenshots
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
+# span durations (seconds): from a kernel launch's tens of microseconds up
+# to a beam decode's seconds
+SPAN_BUCKETS = (0.0001, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                1.0, 2.5, 5.0, 10.0)
 
 # Zero-dependency interactive demo page.
 DEMO_PAGE = """<!doctype html><html><head><title>omniparser_tpu_torch</title>
@@ -56,10 +65,12 @@ document.getElementById('f').onchange = async (ev) => {
 class OmniparserServer:
     """The REST server.  pipeline: a built SOMPipeline (or a stand-in with
     its parse_batch); without one it builds
-    ``SOMPipeline(pipeline_config, device)``, on the card by default."""
+    ``SOMPipeline(pipeline_config, device)``, on the card by default.
+    trace: turn the process's span recorder on and export each batch's
+    spans and counters (the pipeline's ``last_trace``) at /metrics."""
 
     def __init__(self, pipeline_config: PipelineConfig, server_config: ServerConfig = None,
-                 pipeline=None, device="cuda"):
+                 pipeline=None, device="cuda", trace: bool = False):
         from omniparser_tpu_torch.pipeline import SOMPipeline
         from omniparser_tpu_torch.serving.batcher import MicroBatcher
         from omniparser_tpu_torch.utils.image import decode_base64_image, encode_image_base64
@@ -71,16 +82,21 @@ class OmniparserServer:
         self._encode = encode_image_base64
         self.metrics = Metrics()
         self._jlog = jlog
+        self.trace = trace
+        if trace:
+            recorder.enable()
 
         def process_batch(images):
             # items are pre-decoded np arrays: a bad-base64 request fails in
             # its own handler thread (400) and can't poison batch-mates
             t0 = time.perf_counter()
             results = self.pipeline.parse_batch(images)
-            self.metrics.observe("parse_batch_size", len(images))
+            self.metrics.observe("parse_batch_size", len(images), BATCH_BUCKETS)
             self.metrics.observe("parse_batch_seconds", time.perf_counter() - t0)
             for name, v in self.pipeline.last_timings.items():
                 self.metrics.observe(f"stage_{name}_seconds", v)
+            if self.trace and getattr(self.pipeline, "last_trace", None) is not None:
+                self._export(self.pipeline.last_trace)
             return [(self._encode(annotated), elements)
                     for annotated, _, elements in results]
 
@@ -90,6 +106,14 @@ class OmniparserServer:
             batch_window_ms=self.server_config.batch_window_ms,
         )
         self._httpd: Optional[ThreadingHTTPServer] = None
+
+    def _export(self, trace) -> None:
+        """A trace's spans and counters under Prometheus names ('.' -> '_')."""
+        for s in trace.spans:
+            self.metrics.observe(f"span_{s.name.replace('.', '_')}_seconds", s.t1 - s.t0,
+                                 SPAN_BUCKETS)
+        for name, n in trace.counts.items():
+            self.metrics.count(f"{name.replace('.', '_')}_total", n)
 
     def parse(self, base64_image: str):
         t0 = time.perf_counter()
@@ -186,6 +210,8 @@ class OmniparserServer:
         if self._httpd:
             self._httpd.shutdown()
         self.batcher.close()
+        if self.trace:
+            recorder.disable()
 
 
 def main(argv=None):
@@ -206,6 +232,9 @@ def main(argv=None):
                     help="shard batched parses over a device mesh, e.g. '8,1' (data "
                     "parallel) or '4,2' (dp x captioner tensor parallel); requires "
                     "dp*tp CUDA devices (with --device cpu: a mesh of dp*tp CPU entries)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the pipeline's spans and counters (utils/profiling) and "
+                    "export them at /metrics")
     args = ap.parse_args(argv)
 
     import dataclasses
@@ -237,7 +266,7 @@ def main(argv=None):
                          dp=dp, tp=tp)
         pipeline = ShardedServingPipeline(SOMPipeline(cfg, mesh.row_device(0)), mesh)
     server = OmniparserServer(cfg, ServerConfig(host=args.host, port=args.port),
-                              pipeline=pipeline, device=args.device)
+                              pipeline=pipeline, device=args.device, trace=args.trace)
     server.pipeline.warmup()  # the kernels' build and first launches, before any request
     server.serve_forever()
 

@@ -14,7 +14,7 @@ import os
 import sys
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Tuple
 
 # Latency buckets (seconds): from a parse of about 0.1 s up to a tail of
 # about 10 s.
@@ -27,30 +27,32 @@ class Metrics:
     Names use Prometheus conventions (``snake_case``, ``_total`` suffix for
     counters, ``_seconds`` for time histograms). Labels are encoded in the
     name by the caller (e.g. ``responses_total{code="200"}``) to keep the
-    registry a flat dict.
+    registry a flat dict.  A histogram keeps the buckets of its first
+    observation (`buckets`, else the registry's).
     """
 
     def __init__(self, buckets=DEFAULT_BUCKETS):
         self._lock = threading.Lock()
         self._buckets = tuple(buckets)
         self._counters: Dict[str, float] = {}
-        # name -> [per-bucket counts..., +Inf count, sum, count]
-        self._hists: Dict[str, List[float]] = {}
+        # name -> (edges, [per-bucket counts..., +Inf count, sum, count])
+        self._hists: Dict[str, Tuple[Tuple[float, ...], List[float]]] = {}
         self._started = time.time()
 
     def count(self, name: str, n: float = 1.0) -> None:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0.0) + n
 
-    def observe(self, name: str, value: float) -> None:
+    def observe(self, name: str, value: float, buckets=None) -> None:
         with self._lock:
-            h = self._hists.get(name)
-            if h is None:
-                h = self._hists[name] = [0.0] * (len(self._buckets) + 3)
-            for i, edge in enumerate(self._buckets):
+            if name not in self._hists:
+                edges = tuple(buckets or self._buckets)
+                self._hists[name] = (edges, [0.0] * (len(edges) + 3))
+            edges, h = self._hists[name]
+            for i, edge in enumerate(edges):
                 if value <= edge:
                     h[i] += 1
-            h[len(self._buckets)] += 1  # +Inf
+            h[len(edges)] += 1  # +Inf
             h[-2] += value  # sum
             h[-1] += 1  # count
 
@@ -59,15 +61,13 @@ class Metrics:
     def snapshot(self) -> dict:
         with self._lock:
             hists = {}
-            for name, h in self._hists.items():
+            for name, (edges, h) in self._hists.items():
                 count = h[-1]
                 hists[name] = {
                     "count": count,
                     "sum": round(h[-2], 6),
                     "mean": round(h[-2] / count, 6) if count else 0.0,
-                    "buckets": {
-                        str(edge): h[i] for i, edge in enumerate(self._buckets)
-                    },
+                    "buckets": {str(edge): h[i] for i, edge in enumerate(edges)},
                 }
             return {
                 "uptime_s": round(time.time() - self._started, 1),
@@ -83,13 +83,11 @@ class Metrics:
                 base = name.split("{", 1)[0]
                 lines.append(f"# TYPE {base} counter")
                 lines.append(f"{name} {v:g}")
-            for name, h in sorted(self._hists.items()):
+            for name, (edges, h) in sorted(self._hists.items()):
                 lines.append(f"# TYPE {name} histogram")
-                cum = 0.0
-                for i, edge in enumerate(self._buckets):
-                    cum = h[i]
-                    lines.append(f'{name}_bucket{{le="{edge}"}} {cum:g}')
-                lines.append(f'{name}_bucket{{le="+Inf"}} {h[len(self._buckets)]:g}')
+                for i, edge in enumerate(edges):
+                    lines.append(f'{name}_bucket{{le="{edge}"}} {h[i]:g}')
+                lines.append(f'{name}_bucket{{le="+Inf"}} {h[len(edges)]:g}')
                 lines.append(f"{name}_sum {h[-2]:g}")
                 lines.append(f"{name}_count {h[-1]:g}")
         return "\n".join(lines) + "\n"
@@ -106,15 +104,3 @@ def jlog(event: str, _stream=None, **fields) -> None:
     rec = {"ts": round(time.time(), 3), "event": event}
     rec.update(fields)
     print(json.dumps(rec, default=str), file=_stream or sys.stderr, flush=True)
-
-
-_global: Optional[Metrics] = None
-_global_lock = threading.Lock()
-
-
-def global_metrics() -> Metrics:
-    global _global
-    with _global_lock:
-        if _global is None:
-            _global = Metrics()
-        return _global

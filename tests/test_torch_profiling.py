@@ -1,27 +1,12 @@
-"""The port's ``utils/profiling`` (``StageTimer``, ``device_trace``,
-``annotate_trace``), as ``tests/test_utils.py`` holds the JAX package's."""
+"""The port's ``utils/profiling`` trace helpers (``device_trace``,
+``annotate_trace``), as ``tests/test_utils.py`` holds the JAX package's; its
+span recorder is ``tests/test_torch_tracing.py``'s."""
 
 import json
-import time
 
 import torch
 
-from omniparser_tpu_torch.utils.profiling import StageTimer, annotate_trace, device_trace
-
-
-def test_stage_timer():
-    t = StageTimer()
-    with t.stage("a"):
-        time.sleep(0.01)
-    with t.stage("a"):
-        pass
-    with t.stage("b"):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2 and s["a"]["total_s"] >= 0.01
-    assert s["b"]["count"] == 1
-    t.reset()
-    assert t.summary() == {}
+from omniparser_tpu_torch.utils.profiling import annotate_trace, device_trace
 
 
 def test_annotate_trace_noop():

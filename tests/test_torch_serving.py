@@ -23,6 +23,7 @@ from omniparser_tpu_torch.config import (
     CaptionerConfig, DetectorConfig, OcrConfig, PipelineConfig, ServerConfig)
 from omniparser_tpu_torch.serving import MicroBatcher, OmniparserServer
 from omniparser_tpu_torch.utils.image import encode_image_base64
+from omniparser_tpu_torch.utils.profiling import recorder
 
 torch.set_num_threads(2)
 
@@ -31,6 +32,7 @@ class FakePipeline:
     """Stands in for SOMPipeline: echoes the image size as one element."""
 
     last_timings = {}
+    last_trace = None
 
     def parse_image(self, image_rgb):
         h, w = image_rgb.shape[:2]
@@ -41,7 +43,9 @@ class FakePipeline:
         return image_rgb, {"0": [0, 0, 1, 1]}, [elem]
 
     def parse_batch(self, images):
-        return [self.parse_image(i) for i in images]
+        out = [self.parse_image(i) for i in images]
+        self.last_trace = recorder.take()
+        return out
 
 
 def _serve(srv):
@@ -120,14 +124,32 @@ def test_metrics_endpoint(server, rng):
     hist = snap["histograms"]["parse_latency_seconds"]
     assert hist["count"] == 1 and hist["sum"] > 0
     assert snap["histograms"]["parse_batch_size"]["count"] == 1
+    assert set(snap["histograms"]["parse_batch_size"]["buckets"]) == {
+        "1", "2", "4", "8", "16", "32"}  # screenshots
+    assert not any(n.startswith("span_") for n in snap["histograms"])
     status, text = _req(port, "/metrics?format=prometheus")
     assert status == 200
     assert "# TYPE parse_latency_seconds histogram" in text
     assert 'parse_latency_seconds_bucket{le="+Inf"} 1' in text
+    assert 'parse_batch_size_bucket{le="1"} 1' in text
+    # with --trace: the recorder's spans and counters of each batch
+    recorder.disable()  # drops anything an earlier test left pending
+    srv = OmniparserServer(PipelineConfig(), ServerConfig(port=0), pipeline=FakePipeline(),
+                           trace=True)
+    httpd, port = _serve(srv)
+    try:
+        _req(port, "/parse/", {"base64_image": encode_image_base64(img)})
+        _, snap = _req(port, "/metrics/")
+    finally:
+        httpd.shutdown()
+        srv.shutdown()
+    assert snap["histograms"]["span_batcher_wait_seconds"]["count"] == 1
+    assert snap["counters"]["batcher_batch_size_total"] == 1
+    assert not recorder.on
 
 
 def test_structured_logging(monkeypatch):
-    from omniparser_tpu_torch.utils.metrics import global_metrics, jlog
+    from omniparser_tpu_torch.utils.metrics import jlog
 
     monkeypatch.setenv("OMNIPARSER_LOG", "json")
     buf = io.StringIO()
@@ -138,7 +160,6 @@ def test_structured_logging(monkeypatch):
     buf2 = io.StringIO()
     jlog("parse", _stream=buf2)
     assert buf2.getvalue() == ""  # off by default
-    assert global_metrics() is global_metrics()
 
 
 def test_concurrent_clients_no_cross_talk(server, rng):
