@@ -16,7 +16,12 @@ once without a card.  Phases, one JSON line each:
                   all kept, all invalid, a chain across blocks) and with its
                   two launches timed apart; the fused merge in MERGE_CASES
                   (and a case above 48 KB of shared memory), all four masks
-                  exact
+                  exact; BLIP-2's beam decode attention (beam_attention.cu) at
+                  the main path's shape (bfloat16, 128 crops x 5 beams, 32
+                  heads of 80, prefix 48, steps 0, 49 and 98 of 100, a random
+                  ancestry table) and in float32, float16 and a case above
+                  48 KB of shared memory, within one ulp of the output's
+                  largest magnitude (BEAM_ATOL)
   parse           one 1080x1920 synthetic screenshot through
                   SOMPipeline.parse_elements at the default widths
                   (YOLOv8-n @1280, TextDetector @1920, TextRecognizer on
@@ -643,6 +648,9 @@ def phase_kernels(seed: int):
     # ---- K2, the fused merge: all four masks exact ---------------------
     records.append(merge_record(np.random.default_rng(seed + 11), dev))
 
+    # ---- BLIP-2's beam decode attention through the ancestry table -----
+    records.append(beam_attention_record(np.random.default_rng(seed + 13), dev))
+
     # ---- K3: crop-gather, atol 1e-2 ------------------------------------
     k, s = 128, 64
     img, hw, boxes = crop_case(rng, k)
@@ -700,6 +708,88 @@ def phase_kernels(seed: int):
     for r in records:
         emit("kernels", timing=r)
     return records
+
+
+# BLIP-2's decode at the main path's shape: 128 crops x 5 beams, OPT-2.7B's
+# 32 heads of 80, a prefix of 48 (32 queries, bos and a 15-id prompt), 100
+# new tokens; steps 0, 49 and 98 (the mean step is 49)
+BEAM_CASE = {"B": 128, "K": 5, "H": 32, "P": 48, "T": 100, "hd": 80}
+BEAM_STEPS = (0, 49, 98)
+# one bfloat16 ulp (2^-7 of the value) at the output's largest magnitude:
+# the kernel and the plain version differ only in the order of their float32
+# sums, so the last rounding (p.v to bfloat16) may land one ulp apart; a
+# score or probability that rounds the other way moves an output far less
+BEAM_ATOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 1e-5}
+
+
+def beam_case(rng, dtype, dev, B, K, H, P, T, hd):
+    """Stores of random values and a random ancestry table (each entry a
+    slot in [0, K)), q scaled as the decoder scales it."""
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(dtype)
+    q = (torch.randn((B * K, H, 1, hd), generator=g, device=dev) * hd ** -0.5).to(dtype)
+    parents = torch.from_numpy(rng.integers(0, K, (B, K, T)).astype(np.int32)).to(dev)
+    return q, rnd(B, H, P, hd), rnd(B, H, P, hd), rnd(B * K, H, T, hd), rnd(B * K, H, T, hd), \
+        parents
+
+
+def beam_attention_record(rng, dev):
+    """The kernel against its plain version at the main path's shape in
+    bfloat16 (three steps), and at the other widths the port builds (TINY
+    BLIP-2's float32 heads of 8, float16); timed at the mean step beside
+    its bound, the plain version and the library's attention over the
+    gathered cache (the port never calls it)."""
+    import torch.nn.functional as F
+
+    from omniparser_tpu_torch.ops import beam_attention as ba
+
+    c = BEAM_CASE
+    args = beam_case(rng, torch.bfloat16, dev, **c)
+    errs = {}
+    before = ba.launch_counts["beam_attention"]
+    for step in BEAM_STEPS:
+        got = ba.beam_attention(*args, step)
+        want = ba.beam_attention_plain(*args, step)
+        torch.cuda.synchronize()
+        errs[step] = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        emit("kernels", kernel="beam_attention", dtype="bfloat16", step=step,
+             max_abs_diff=errs[step], max_abs=scale, atol=BEAM_ATOL[torch.bfloat16] * scale)
+        if not errs[step] <= BEAM_ATOL[torch.bfloat16] * scale or not torch.isfinite(got).all():
+            fail(f"beam_attention disagrees with its plain version at step {step}")
+    for dtype, shape in ((torch.float32, dict(B=4, K=5, H=4, P=7, T=12, hd=8)),
+                         (torch.float16, dict(c, B=8)), (torch.float32, dict(c, B=8)),
+                         (torch.bfloat16, dict(B=3, K=8, H=2, P=300, T=900, hd=128))):
+        other = beam_case(rng, dtype, dev, **shape)
+        for step in (0, shape["T"] - 1):
+            got = ba.beam_attention(*other, step)
+            want = ba.beam_attention_plain(*other, step)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            emit("kernels", kernel="beam_attention", dtype=str(dtype), shape=shape, step=step,
+                 max_abs_diff=err, atol=BEAM_ATOL[dtype] * scale)
+            if not err <= BEAM_ATOL[dtype] * scale:
+                fail(f"beam_attention disagrees with its plain version: {dtype} {shape}")
+    if ba.launch_counts["beam_attention"] == before:
+        fail("beam_attention launched no kernel")
+    step = BEAM_STEPS[1]
+    read = ba.read_bytes(args[1], args[3], args[5], step)
+    bms, by = bound(read + 2 * args[0].numel() * 2 + args[5][:, :, :step + 1].numel() * 4,
+                    4.0 * c["B"] * c["K"] * c["H"] * c["hd"] * (c["P"] + step + 1))
+    q, pk, pv, gk, gv, parents = args
+    keys, values = ba.beam_rows(pk, gk, parents, step), ba.beam_rows(pv, gv, parents, step)
+    lib = lambda: F.scaled_dot_product_attention(q, keys, values, scale=1.0)
+    lib_err = float((lib().float() - ba.beam_attention_plain(*args, step).float()).abs().max())
+    return {"name": "beam_attention", "route": "cuda",
+            "source": "omniparser_tpu_torch/csrc/beam_attention.cu",
+            "replaces": "none (BLIP-2's per-step cache reorder and masked attention)",
+            "launches": 0, "max_abs_err": max(errs.values()),
+            "ms": time_ms(lambda: ba.beam_attention(*args, step), 50),
+            "plain_ms": time_ms(lambda: ba.beam_attention_plain(*args, step), 5),
+            "bound_ms": bms, "bound_by": by, "library_ms": time_ms(lib, 20),
+            "library_max_abs_diff": lib_err, "shape": dict(c, step=step),
+            "bytes_moved": read, "max_abs_err_by_step": errs}
 
 
 MERGE_OUTPUTS = ("icon_keep", "ocr_keep", "absorb", "icon_suppressed")
@@ -796,15 +886,17 @@ def merge_record(rng, dev):
 
 
 def all_counts():
-    from omniparser_tpu_torch.ops import hopper_crop, hopper_kernels
+    from omniparser_tpu_torch.ops import beam_attention, hopper_crop, hopper_kernels
 
-    return {**hopper_kernels.launch_counts, **hopper_crop.launch_counts}
+    return {**hopper_kernels.launch_counts, **hopper_crop.launch_counts,
+            **beam_attention.launch_counts}
 
 
 def reset_counts():
-    from omniparser_tpu_torch.ops import hopper_crop, hopper_kernels
+    from omniparser_tpu_torch.ops import beam_attention, hopper_crop, hopper_kernels
 
-    for d in (hopper_kernels.launch_counts, hopper_crop.launch_counts):
+    for d in (hopper_kernels.launch_counts, hopper_crop.launch_counts,
+              beam_attention.launch_counts):
         for k in d:
             d[k] = 0
 
@@ -2041,7 +2133,7 @@ def family_blip2(seed: int, pipe, image, launches_by_path):
         fail("families: BLIP-2 captioned no icon")
     if elements_a != elements_b:
         fail("families: two BLIP-2 get_som_labeled_img calls gave different captions")
-    if counts["nms_keep"] != 1 or counts["merge_masks"] != 1:
+    if counts["nms_keep"] != 1 or counts["merge_masks"] != 1 or counts["beam_attention"] < 1:
         fail(f"families: the BLIP-2 call launched {counts}")
     compat._PIPELINE_CACHE.clear()
     del cap, cached
@@ -2357,14 +2449,19 @@ def parity_families(seed: int, dev: str = "cuda"):
     px = torch.from_numpy(rng.random((4, 3, 28, 28), np.float32))
     prompt = torch.tensor([[2, 40, 41, 42]] * 4)
     toks = {}
+    launches = all_counts()["beam_attention"]
     for name, d in (("cpu", "cpu"), ("cuda", dev)):
         m = cpu_b if name == "cpu" else gpu_b
         toks[name] = blip2_generate(m, px.to(d), prompt.to(d), 12, 5)[0].cpu()
+    launches = all_counts()["beam_attention"] - launches
     same = bool(torch.equal(toks["cpu"], toks["cuda"]))
     emit("parity_on_card", check="TINY_BLIP2 blip2_generate, 5 beams, 12 tokens, CPU against "
-         "card, float32", tokens_equal=same, tokens=toks["cuda"].tolist())
+         "card, float32", tokens_equal=same, tokens=toks["cuda"].tolist(),
+         beam_attention_launches=launches)
     if not same:
         fail("parity_on_card: TINY_BLIP2 beam search gave other tokens on the card")
+    if dev != "cpu" and launches != 11 * TINY_BLIP2.lm_layers:
+        fail(f"parity_on_card: the card's decode launched beam_attention {launches} times")
 
 
 def parity_phi3v(seed: int, cpu, cfg, image, dev: str = "cuda"):

@@ -10,15 +10,19 @@ with the prompt "The image shows", num_beams=5, no_repeat_ngram_size=2:
     layers;
   * OPT decoder: pre-LN, ReLU FFN, learned positions with the +2 offset,
     the LM head tied to the token table, over [projected queries ++ prompt
-    embeds], with a static KV cache of prefix + max_new_tokens;
-  * beam decoding through ``models/generate.beam_search``.
+    embeds], with a static key/value store of the prefix, one row a crop,
+    and one of the generated tokens, one row a beam slot;
+  * beam decoding through ``models/generate.beam_search``, whose ancestry
+    table the decode's attention reads (``ops/beam_attention``): no cache
+    is moved when the beams are reordered.
 
 Attribute names follow the JAX package's parameter tree so that
 ``weights/convert.py`` carries its trees over by name; norms (flax's
 default epsilon, 1e-6, as the JAX package has them), softmaxes and the LM
 head compute in float32, and the token table stays float32 (the JAX
 package keeps its parameters in float32 and computes in the module dtype).
-Attention is written out.
+Attention is written out (``ops/beam_attention.attend``), and a decode step's
+is the hand-written kernel on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import torch.nn.functional as F
 
 from omniparser_tpu_torch.config import CaptionerConfig
 from omniparser_tpu_torch.models.generate import beam_search
+from omniparser_tpu_torch.ops.beam_attention import attend as _attend
+from omniparser_tpu_torch.ops.beam_attention import beam_attention
 from omniparser_tpu_torch.utils.profiling import recorder
 
 LN_EPS = 1e-6  # flax LayerNorm's default
@@ -78,15 +84,6 @@ TINY_BLIP2 = Blip2Dims(
 
 def _ln(x: torch.Tensor, ln: nn.LayerNorm, dtype) -> torch.Tensor:
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
-
-
-def _attend(q, k, v, mask=None):
-    """q [B,H,Q,hd] (already scaled), k/v [B,H,K,hd]; softmax in float32,
-    masked slots at the dtype's lowest value."""
-    a = q @ k.transpose(-1, -2)
-    if mask is not None:
-        a = a.masked_fill(~mask, torch.finfo(a.dtype).min)
-    return torch.softmax(a.float(), dim=-1).to(v.dtype) @ v
 
 
 class EvaAttention(nn.Module):
@@ -204,25 +201,38 @@ class OptLayer(nn.Module):
         self.fc1 = nn.Linear(d.lm_width, d.lm_mlp)
         self.fc2 = nn.Linear(d.lm_mlp, d.lm_width)
 
-    def forward(self, x, mask, cache: List[torch.Tensor], start: int):
-        """x [B, n, D] at positions start..start+n-1; its keys and values
-        are written into cache = [k, v] ([B, H, L, hd]) at those positions,
-        and attention reads the whole cache under `mask` [.., n, L]."""
+    def forward(self, x, cache: List[torch.Tensor], step: Optional[int] = None,
+                parents: Optional[torch.Tensor] = None):
+        """cache = [prefix_k, prefix_v, gen_k, gen_v] (``OptDecoder.new_caches``).
+        The prefill (step None): x [B, P, D], the prefix, whose keys and
+        values fill the prefix store; attention is causal over it.  Decode
+        step s: x [B*K, 1, D], the token fed to each beam slot, whose keys
+        and values go to the gen store at position s; attention reads the
+        prefix and each beam's own positions 0..s through `parents`
+        [B, K, T] (``ops/beam_attention``)."""
         b, n, c = x.shape
         hd = c // self.heads
         y = _ln(x, self.self_attn_layer_norm, x.dtype)
         sp = lambda t: t.reshape(b, n, self.heads, hd).transpose(1, 2)
-        cache[0][:, :, start:start + n] = sp(self.k_proj(y))
-        cache[1][:, :, start:start + n] = sp(self.v_proj(y))
-        o = _attend(sp(self.q_proj(y)) * hd ** -0.5, cache[0], cache[1], mask)
+        q = sp(self.q_proj(y)) * hd ** -0.5
+        if step is None:
+            cache[0].copy_(sp(self.k_proj(y)))
+            cache[1].copy_(sp(self.v_proj(y)))
+            causal = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
+            o = _attend(q, cache[0], cache[1], causal)
+        else:
+            cache[2][:, :, step:step + 1] = sp(self.k_proj(y))
+            cache[3][:, :, step:step + 1] = sp(self.v_proj(y))
+            o = beam_attention(q, *cache, parents, step)
         x = x + self.out_proj(o.transpose(1, 2).reshape(b, n, c))
         y = F.relu(self.fc1(_ln(x, self.final_layer_norm, x.dtype)))
         return x + self.fc2(y)
 
 
 class OptDecoder(nn.Module):
-    """OPT decoder over a static KV cache (one [k, v] pair a layer, each
-    [B, H, L, hd], so that attention reads it without a copy)."""
+    """OPT decoder over two static key/value stores a layer: the prefix's,
+    one row a crop, and the generated tokens', one row a beam slot; a beam
+    reorder moves neither (``ops/beam_attention``)."""
 
     def __init__(self, d: Blip2Dims):
         super().__init__()
@@ -237,38 +247,44 @@ class OptDecoder(nn.Module):
     def dtype(self):
         return self.layer0.q_proj.weight.dtype
 
-    def new_caches(self, batch: int, length: int, device) -> List[List[torch.Tensor]]:
+    def new_caches(self, batch: int, prefix_len: int, gen_len: int, beams: int,
+                   device) -> List[List[torch.Tensor]]:
+        """[prefix_k, prefix_v ([batch, H, prefix_len, hd]), gen_k, gen_v
+        ([batch * beams, H, gen_len, hd])] a layer; the prefill fills the
+        first two, decode step s writes position s of the others, and no
+        position is read before it is written."""
         d = self.dims
-        shape = (batch, d.lm_heads, length, d.lm_width // d.lm_heads)
-        return [[torch.zeros(shape, dtype=self.dtype, device=device) for _ in range(2)]
-                for _ in range(d.lm_layers)]
+        hd = d.lm_width // d.lm_heads
+        pre = (batch, d.lm_heads, prefix_len, hd)
+        gen = (batch * beams, d.lm_heads, gen_len, hd)
+        return [[torch.empty(shape, dtype=self.dtype, device=device)
+                 for shape in (pre, pre, gen, gen)] for _ in range(d.lm_layers)]
 
-    def _run(self, h, mask, caches, start: int):
+    def _run(self, h, caches, step=None, parents=None):
         for i, cache in enumerate(caches):
-            h = getattr(self, f"layer{i}")(h, mask, cache, start)
+            h = getattr(self, f"layer{i}")(h, cache, step, parents)
         h = _ln(h, self.final_layer_norm, h.dtype)
         return h[:, -1:].float() @ self.embed_tokens.weight.float().T
 
     def prefill(self, inputs_embeds, caches):
-        """The prefix (image queries ++ prompt) into the caches' first
-        positions -> logits of the last position [B, 1, V]."""
-        b, p, _ = inputs_embeds.shape
-        L = caches[0][0].shape[2]
-        dev = inputs_embeds.device
-        pos = self.embed_positions(torch.arange(p, device=dev) + 2).to(self.dtype)
-        h = (inputs_embeds + pos[None]).to(self.dtype)
-        # causal over the prefix; cache slots past it hold nothing yet
-        mask = torch.arange(L, device=dev)[None, :] <= torch.arange(p, device=dev)[:, None]
-        return self._run(h, mask[None, None], caches, 0)
+        """The prefix (image queries ++ prompt) into the prefix stores ->
+        logits of the last position [B, 1, V]."""
+        p = inputs_embeds.shape[1]
+        pos = self.embed_positions(torch.arange(p, device=inputs_embeds.device) + 2)
+        return self._run((inputs_embeds + pos.to(self.dtype)[None]).to(self.dtype), caches)
 
-    def decode_one(self, token_ids, pos_index: int, caches):
-        """One token [B, 1] at absolute position pos_index -> logits [B, 1, V]."""
-        dev = token_ids.device
-        L = caches[0][0].shape[2]
+    def decode_one(self, token_ids, step: int, caches, parents: Optional[torch.Tensor] = None):
+        """Tokens [B*K, 1] fed at decode step `step` (absolute position
+        prefix + step) -> logits [B*K, 1, V].  parents [B, K, T] int32: the
+        beams' ancestry table (``models/generate.beam_search``); None for
+        one beam a row, each reading its own positions."""
+        prefix_k, _, gen_k, _ = caches[0]
+        if parents is None:
+            parents = torch.zeros((gen_k.shape[0], 1, gen_k.shape[2]), dtype=torch.int32,
+                                  device=token_ids.device)
         h = (self.embed_tokens(token_ids).to(self.dtype)
-             + self.embed_positions.weight[pos_index + 2].to(self.dtype))
-        visible = (torch.arange(L, device=dev) <= pos_index)[None, None, None, :]
-        return self._run(h, visible, caches, pos_index)
+             + self.embed_positions.weight[prefix_k.shape[2] + step + 2].to(self.dtype))
+        return self._run(h, caches, step, parents)
 
 
 class Blip2(nn.Module):
@@ -280,20 +296,27 @@ class Blip2(nn.Module):
         self.language_projection = nn.Linear(dims.qformer_width, dims.lm_width)
         self.language_model = OptDecoder(dims)
 
-    def encode_and_prefill(self, pixel_values, prompt_ids, cache_len: int):
+    def encode_and_prefill(self, pixel_values, prompt_ids, cache_len: int, beams: int = 1):
         """Image [B, 3, S, S] -> queries -> projected embeds ++ prompt
         embeds; prefill the LM.  Returns (last-position logits [B, 1, V],
-        caches of length cache_len, prefix length)."""
+        caches with room for cache_len positions in all, `beams` gen rows a
+        crop, prefix length)."""
         lm = self.language_model
         q_emb = self.language_projection(self.qformer(self.vision_model(pixel_values)))
         t_emb = lm.embed_tokens(prompt_ids).to(q_emb.dtype)
         embeds = torch.cat([q_emb, t_emb], dim=1)
-        caches = lm.new_caches(embeds.shape[0], cache_len, embeds.device)
-        return lm.prefill(embeds, caches), caches, embeds.shape[1]
+        b, p = embeds.shape[:2]
+        caches = lm.new_caches(b, p, cache_len - p, beams, embeds.device)
+        return lm.prefill(embeds, caches), caches, p
 
-    def decode_one(self, token_ids, step: int, prefix_len: int, caches):
-        """Decode index `step`: absolute cache position prefix_len + step."""
-        return self.language_model.decode_one(token_ids, prefix_len + step, caches)
+    def decode_one(self, token_ids, step: int, prefix_len: int, caches,
+                   parents: Optional[torch.Tensor] = None):
+        """Decode index `step`: absolute position prefix_len + step, where
+        prefix_len is the prefix stores' length."""
+        if prefix_len != caches[0][0].shape[2]:
+            raise ValueError(f"prefix_len {prefix_len}: the prefix stores hold "
+                             f"{caches[0][0].shape[2]} positions")
+        return self.language_model.decode_one(token_ids, step, caches, parents)
 
 
 @torch.no_grad()
@@ -306,24 +329,23 @@ def blip2_generate(model: Blip2, pixel_values, prompt_ids, max_new_tokens: int =
     b = pixel_values.shape[0]
     prefix = d.num_query_tokens + prompt_ids.shape[1]
     k = num_beams
-    with recorder.span("caption.vision", pixel_values.device):
+    dev = pixel_values.device
+    with recorder.span("caption.vision", dev):
         last_logits, caches, _ = model.encode_and_prefill(pixel_values, prompt_ids,
-                                                          prefix + max_new_tokens)
-        for entry in caches:  # beams fold into the batch, beam-major within a row
-            for j, c in enumerate(entry):
-                entry[j] = c.repeat_interleave(k, dim=0)
+                                                          prefix + max_new_tokens, beams=k)
+    parents = torch.zeros((b, k, max_new_tokens), dtype=torch.int32, device=dev)
 
     def decode_step(flat_tokens, s, caches):
-        return model.decode_one(flat_tokens, s, prefix, caches), caches
+        return model.decode_one(flat_tokens, s, prefix, caches, parents), caches
 
-    with recorder.span("caption.beam", pixel_values.device):
+    with recorder.span("caption.beam", dev):
         return beam_search(
             decode_step, last_logits[:, -1], caches, b, k, max_new_tokens, d.vocab_size,
             eos_token_id=d.eos_token_id, pad_token_id=d.pad_token_id,
             length_penalty=length_penalty, no_repeat_ngram_size=no_repeat_ngram_size,
             # decoder-only semantics: the text prompt joins the n-gram scan and
             # the length normalisation (the query embeds have no token ids)
-            prompt_tokens=prompt_ids, length_offset=prompt_ids.shape[1])
+            prompt_tokens=prompt_ids, length_offset=prompt_ids.shape[1], ancestry=parents)
 
 
 # CLIP normalisation (HF Blip2Processor)

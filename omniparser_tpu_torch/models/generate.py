@@ -2,9 +2,11 @@
 
 The reference's BLIP-2 path generates with num_beams=5,
 no_repeat_ngram_size=2 and early stopping.  Beams fold into the batch
-axis, the KV caches are gathered by source beam after every step, and the
-bigram ban is a fixed-shape scatter into a [B, K, V] mask.  The loop reads
-no device value, so its launches queue without a synchronise.
+axis; after every step the beams' ancestry table is gathered by source
+beam, as the token buffer is, and the decoder's key/value caches are not
+moved (``ops/beam_attention`` reads them through the table).  The bigram
+ban is a fixed-shape scatter into a [B, K, V] mask.  The loop reads no
+device value, so its launches queue without a synchronise.
 
 Semantics of the JAX package's ``beam_search`` (HF's decoder-only rules):
   * the n-gram ban scans the full running sequence, prompt tokens
@@ -18,7 +20,7 @@ Semantics of the JAX package's ``beam_search`` (HF's decoder-only rules):
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -48,36 +50,30 @@ def ban_repeated_bigrams(tokens: torch.Tensor, last: torch.Tensor, length: int,
     return counts > 0
 
 
-def reorder_caches_(caches: List, index: torch.Tensor) -> None:
-    """Gather every cache tensor's leading (beam-flattened) dim by `index`,
-    in place in the list: each entry is a list of tensors, replaced one at
-    a time so that only one old tensor is alive beside its copy.  The
-    recorder's ``beam.reorder_bytes`` counts the bytes read and written."""
-    for entry in caches:
-        for j, c in enumerate(entry):
-            entry[j] = c.index_select(0, index)
-    if recorder.on:  # each row is read once and its copy written once
-        recorder.count("beam.reorder_bytes",
-                       sum(2 * c.numel() * c.element_size() for entry in caches for c in entry))
-
-
 @torch.no_grad()
-def beam_search(decode_step: Callable, init_logits: torch.Tensor, caches: List,
+def beam_search(decode_step: Callable, init_logits: torch.Tensor, caches: Any,
                 batch: int, num_beams: int, max_new_tokens: int, vocab_size: int,
                 eos_token_id: int, pad_token_id: int, length_penalty: float = 1.0,
                 no_repeat_ngram_size: int = 0, prompt_tokens: Optional[torch.Tensor] = None,
-                length_offset: int = 0):
+                length_offset: int = 0, ancestry: Optional[torch.Tensor] = None):
     """Generic beam search.
 
     init_logits [B, V]: the prefill's last-position logits; token 0 of every
     beam is drawn from them.  decode_step(flat_tokens [B*K, 1], s, caches)
     -> (logits [B*K, 1, V], caches) is then called for s = 0 ..
     max_new_tokens - 2, feeding token s and returning the logits of token
-    s + 1.  caches: a list of lists of tensors whose leading dim is already
-    B*K (beam-major within a batch row); they are reordered by source beam
-    after every step.  prompt_tokens [B, P] (optional): the text prompt of
-    a decoder-only model, which joins the n-gram ban; length_offset: tokens
-    added to each hypothesis' length in the final ranking.
+    s + 1.  caches: the decoder's state, handed to decode_step and taken
+    back; the search never moves it.  ancestry [B, K, T >= max_new_tokens]
+    int32 (optional), kept in place: before step s its column s is set to
+    each beam's own slot (0..K-1), and after the selection its rows are
+    gathered by source beam as the tokens are.  Entry [b, j, p] is then the
+    slot (row b*K + slot of the flattened beams) that fed position p of
+    beam j, so a decoder that writes step s's keys and values at row
+    b*K + j, position s, and reads them through the table needs no cache
+    reorder.  prompt_tokens [B, P] (optional): the text prompt of a
+    decoder-only model, which joins the n-gram ban; length_offset: tokens
+    added to each hypothesis' length in the final ranking.  The recorder
+    counts ``beam.steps``.
 
     Returns (tokens [B, max_new_tokens] int32 of the best beam, its
     length-normalised score [B])."""
@@ -99,11 +95,14 @@ def beam_search(decode_step: Callable, init_logits: torch.Tensor, caches: List,
     done = last == eos_token_id
     pad_only = torch.full((vocab_size,), NEG_INF, dtype=torch.float32, device=dev)
     pad_only[pad_token_id] = 0.0
-    beam_base = torch.arange(batch, device=dev)[:, None] * k
+    own_slot = torch.arange(k, dtype=torch.int32, device=dev)
 
     for s in range(max_new_tokens - 1):
         t = p + s + 1  # buffer index of the token chosen in this step
+        if ancestry is not None:
+            ancestry[:, :, s] = own_slot
         logits, caches = decode_step(last.reshape(batch * k, 1), s, caches)
+        recorder.count("beam.steps")
         logp = torch.log_softmax(logits[:, -1].float(), dim=-1).reshape(batch, k, vocab_size)
         if no_repeat_ngram_size == 2:
             logp = logp.masked_fill(ban_repeated_bigrams(buf, last, t, vocab_size), NEG_INF)
@@ -116,7 +115,9 @@ def beam_search(decode_step: Callable, init_logits: torch.Tensor, caches: List,
         buf = torch.gather(buf, 1, src[..., None].expand(-1, -1, buf.shape[-1]))
         buf[:, :, t] = torch.where(src_done, torch.full_like(last, pad_token_id), last)
         done = src_done | (last == eos_token_id)
-        reorder_caches_(caches, (beam_base + src).reshape(-1))
+        if ancestry is not None:
+            ancestry.copy_(torch.gather(ancestry, 1,
+                                        src[..., None].expand(-1, -1, ancestry.shape[-1])))
 
     gen = buf[:, :, p:]
     lengths = (gen != pad_token_id).sum(-1).float() + length_offset

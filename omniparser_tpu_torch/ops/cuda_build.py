@@ -39,7 +39,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-SOURCES = ("nms.cu", "overlap.cu", "crop.cu")
+SOURCES = ("nms.cu", "overlap.cu", "crop.cu", "beam_attention.cu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # re-entrant: load() holds it while it calls build_all()

@@ -53,9 +53,10 @@ _NULL = contextlib.nullcontext()
 
 def _launch_totals() -> Dict[str, int]:
     """The hand-written kernels' process-wide launch counters."""
-    from omniparser_tpu_torch.ops import hopper_crop, hopper_kernels
+    from omniparser_tpu_torch.ops import beam_attention, hopper_crop, hopper_kernels
 
-    return {**hopper_kernels.launch_counts, **hopper_crop.launch_counts}
+    return {**hopper_kernels.launch_counts, **hopper_crop.launch_counts,
+            **beam_attention.launch_counts}
 
 
 class _Span:

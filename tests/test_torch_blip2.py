@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from omniparser_tpu.models import blip2 as jb
 from omniparser_tpu.models.generate import beam_search as jbeam
@@ -188,6 +189,99 @@ def test_blip2_generate_matches_jax(blip):
     tok2, _ = tb.blip2_generate(tm, torch.from_numpy(px).permute(0, 3, 1, 2),
                                 torch.from_numpy(prompt).long(), 6, 3)
     assert torch.equal(tok, tok2)
+
+
+def _static_cache_decode(lm, token_ids, pos: int, caches):
+    """The decode before the ancestry table, the oracle: every layer writes
+    position `pos` of its static cache [B*K, H, L, hd] and attends over the
+    whole cache under a mask of the positions up to `pos`."""
+    h = (lm.embed_tokens(token_ids).to(lm.dtype) + lm.embed_positions.weight[pos + 2].to(lm.dtype))
+    for i, (ck, cv) in enumerate(caches):
+        layer = getattr(lm, f"layer{i}")
+        b, n, c = h.shape
+        hd = c // layer.heads
+        y = tb._ln(h, layer.self_attn_layer_norm, h.dtype)
+        sp = lambda t: t.reshape(b, n, layer.heads, hd).transpose(1, 2)
+        ck[:, :, pos:pos + 1] = sp(layer.k_proj(y))
+        cv[:, :, pos:pos + 1] = sp(layer.v_proj(y))
+        visible = (torch.arange(ck.shape[2]) <= pos)[None, None, None, :]
+        o = tb._attend(sp(layer.q_proj(y)) * hd ** -0.5, ck, cv, visible)
+        h = h + layer.out_proj(o.transpose(1, 2).reshape(b, n, c))
+        h = h + layer.fc2(F.relu(layer.fc1(tb._ln(h, layer.final_layer_norm, h.dtype))))
+    h = tb._ln(h, lm.final_layer_norm, h.dtype)
+    return h[:, -1:].float() @ lm.embed_tokens.weight.float().T
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("ngram", [0, 2])
+@pytest.mark.parametrize("finish_early", [False, True])
+def test_ancestry_table_attention_equals_the_reordered_static_cache(blip, monkeypatch, k,
+                                                                    ngram, finish_early):
+    """One beam search through the table path (the decode reads its caches
+    through beam_search's ancestry table, with the plain version of the
+    kernel) and through the oracle (the caches reordered by source beam
+    with index_select after every step, then a masked attention over the
+    whole static cache), both fed the same prefill: equal logits at every
+    step, so equal tokens and scores."""
+    from omniparser_tpu_torch.models import generate
+
+    tm = blip[3]
+    lm = tm.language_model
+    rng = np.random.default_rng(12)
+    b, t = 2, 7
+    px = torch.from_numpy(rng.random((b, 3, 28, 28), np.float32))
+    prompt = torch.from_numpy(rng.integers(3, 150, (b, 4))).long()
+    prefix = DIMS.num_query_tokens + 4
+    with torch.no_grad():
+        logits0, caches, _ = tm.encode_and_prefill(px, prompt, prefix + t, beams=k)
+    static = [[torch.cat([c.repeat_interleave(k, 0), torch.zeros_like(g)], dim=2)
+               for c, g in ((e[0], e[2]), (e[1], e[3]))] for e in caches]
+
+    def biased(logits, s):
+        if finish_early and s == 1:  # every other beam slot ends here
+            logits[::2, :, DIMS.eos_token_id] += 1e3
+        return logits
+
+    picks = []
+    top_k = generate.stable_top_k
+
+    def recording_top_k(x, kk):
+        got = top_k(x, kk)
+        picks.append(torch.div(got[1], DIMS.vocab_size, rounding_mode="floor"))
+        return got
+
+    table_logits, oracle_logits = [], []
+    parents = torch.zeros((b, k, t), dtype=torch.int32)
+
+    def table_step(flat, s, state):
+        table_logits.append(biased(tm.decode_one(flat, s, prefix, state, parents), s))
+        return table_logits[-1], state
+
+    def oracle_step(flat, s, state):
+        if s:  # the selection of the step before: rows gathered by source beam
+            index = (torch.arange(b)[:, None] * k + picks[-1]).reshape(-1)
+            for entry in state:
+                for j, c in enumerate(entry):
+                    entry[j] = c.index_select(0, index)
+        oracle_logits.append(biased(_static_cache_decode(lm, flat, prefix + s, state), s))
+        return oracle_logits[-1], state
+
+    kw = dict(eos_token_id=DIMS.eos_token_id, pad_token_id=DIMS.pad_token_id,
+              no_repeat_ngram_size=ngram, prompt_tokens=prompt, length_offset=4)
+    init = logits0[:, -1]
+    got = generate.beam_search(table_step, init, caches, b, k, t, DIMS.vocab_size,
+                               ancestry=parents, **kw)
+    monkeypatch.setattr(generate, "stable_top_k", recording_top_k)
+    want = generate.beam_search(oracle_step, init, static, b, k, t, DIMS.vocab_size, **kw)
+    assert len(table_logits) == len(oracle_logits) == t - 1
+    for s, (a, o) in enumerate(zip(table_logits, oracle_logits)):
+        np.testing.assert_allclose(a.numpy(), o.numpy(), rtol=0,
+                                   atol=1e-5 * float(o.abs().max()), err_msg=f"step {s}")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if finish_early:
+        assert (got[0] == DIMS.eos_token_id).any()
+    if k > 1:  # the beams were reordered, so the table is no identity
+        assert (parents[:, :, :t - 1] != torch.arange(k, dtype=torch.int32)[:, None]).any()
 
 
 def _captioners(blip, crop_size=64, batch=8, max_new=5):

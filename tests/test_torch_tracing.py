@@ -185,7 +185,10 @@ def test_batcher_wait_is_one_span_per_item():
         i for t in traces for i in range(int(t.counts["batcher.batch_size"])))
 
 
-def test_blip2_decode_spans_and_reorder_bytes(images):
+def test_blip2_decode_spans_and_cache_bytes(images):
+    """BLIP-2's decode moves no cache (no ``beam.reorder_bytes``), counts
+    its steps and the key/value bytes its attention reads: the prefix once
+    a crop and each beam's own positions 0..s, a layer a step."""
     from omniparser_tpu_torch.models.blip2 import TINY_BLIP2
 
     dims = dataclasses.replace(TINY_BLIP2, vocab_size=160, eos_token_id=159)
@@ -201,8 +204,17 @@ def test_blip2_decode_spans_and_reorder_bytes(images):
     assert all(boxes.t0 <= s.t0 <= s.t1 <= boxes.t1 for s in inner)
     c = trace.counts
     assert c["caption.slots"] == 4 > c["caption.served"] > 0  # padded to K crops
+    calls = p.captioner.generate_calls
     steps = p.captioner.max_new_tokens - 1
-    assert c["beam.reorder_bytes"] > 0 and c["beam.reorder_bytes"] % (2 * steps) == 0
+    assert calls == 1 and c["beam.steps"] == calls * steps
+    assert "beam.reorder_bytes" not in c
+    crops, beams, heads = 4, p.captioner.num_beams, dims.lm_heads
+    hd = dims.lm_width // heads
+    prefix = dims.num_query_tokens + len(p.captioner.prompt_ids)
+    row = heads * hd * 4  # float32: one position of one layer's keys (or values)
+    want = sum(2 * row * (crops * prefix + crops * beams * (s + 1))
+               for s in range(steps)) * dims.lm_layers * calls
+    assert c["beam.attn_bytes"] == want
 
 
 def test_span_names_reach_the_device_trace(pipe, images, tmp_path):
