@@ -5,10 +5,6 @@ once, and of the source pixels (3 bytes) under a box, those that the
 output samples: the box's own pixels, or four taps per output pixel where
 the box is larger than the patch."""
 
-KERNELS = ("crop_resize_kernel",)
-COUNT_BY = "crop_resize_kernel"
-
-
 def work(boxes_norm, out_hw, hw):
     """boxes_norm: [K, 4] normalised xyxy (numpy); out_hw (oh, ow); hw (h, w)."""
     import numpy as np

@@ -5,10 +5,6 @@ two terms, the comparison; and 3 per box for its area), and the sorted
 boxes (16 bytes), their validity (1 byte) and the keep mask (1 byte) move
 once.  The kernel's own bitmask is scratch and is not counted."""
 
-KERNELS = ("nms_mask_kernel", "nms_scan")  # substrings of the trace's kernel names
-COUNT_BY = "nms_mask_kernel"               # one launch of it per call
-
-
 def work(n: int, n_valid: int):
     ops = 10 * n_valid * (n_valid - 1) // 2 + 3 * n_valid
     return ops, 18 * n

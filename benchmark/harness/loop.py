@@ -83,13 +83,28 @@ class Window:
 
     def run(self, seconds: float, during=None) -> Dict:
         """Drive the clients for `seconds`; `during(t0)` runs on this thread
-        meanwhile (the traced run's profiler)."""
-        t0 = time.perf_counter()
-        deadline = t0 + seconds
-        threads = [threading.Thread(target=self._client, args=(c, deadline), daemon=True)
+        meanwhile (the traced run's profiler).
+
+        The clients' threads are started before the window and released
+        together at its start, so that their first requests reach the
+        batcher at once: started one by one inside the window, the last of
+        them often missed the batcher's window and the first batch went out
+        short (2 to 7 of 8 screenshots in half the runs), one launch train
+        more for the same work."""
+        deadline = [0.0]
+        go = threading.Event()
+
+        def client(c):
+            go.wait()
+            self._client(c, deadline[0])
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
                    for c in range(self.clients)]
         for t in threads:
             t.start()
+        t0 = time.perf_counter()
+        deadline[0] = t0 + seconds
+        go.set()
         if during is not None:
             during(t0)
         for t in threads:

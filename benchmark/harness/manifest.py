@@ -10,6 +10,13 @@ gives it:
   metrics/<metric>.py          read(run) -> number, or None where there is
                                nothing to read
   flops/<network>.py           flops(**shape) -> the work a call needs
+  captioners/<backend>.py      a captioner backend: its reference network,
+                               the port's dims, warm-up, readings
+                               (the interface: captioners/florence.py)
+  kernels/<kernel>.py          a hand-written kernel: the port's function
+                               that launches it, what a call keeps, its work
+                               and trace names (the interface:
+                               kernels/nms_keep.py)
 """
 
 from __future__ import annotations
@@ -78,3 +85,19 @@ def metric_reader(name: str):
 
 def flops_of(network: str):
     return load_module("flops", network + ".py").flops
+
+
+def captioner(cfg: Dict):
+    """The configuration's captioner backend, by its file."""
+    backend = cfg["pipeline"]["captioner"]["backend"]
+    if not os.path.isfile(os.path.join(BENCH_DIR, "captioners", backend + ".py")):
+        raise FileNotFoundError(f"captioner backend {backend!r} has no file "
+                                f"benchmark/captioners/{backend}.py")
+    return load_module("captioners", backend + ".py")
+
+
+def kernels() -> Dict:
+    """Every kernel of benchmark/kernels/, by its file's name."""
+    names = sorted(f[:-3] for f in os.listdir(os.path.join(BENCH_DIR, "kernels"))
+                   if f.endswith(".py") and not f.startswith("_"))
+    return {n: load_module("kernels", n + ".py") for n in names}

@@ -1,7 +1,8 @@
 """The system under test: the measured package's SOMPipeline, built from a
 configuration file, with the harness's own wrappers around the calls
-whose outputs the comparison judges.  This is the one module of the
-harness that imports the measured package.
+whose outputs the comparison judges.  Beside the captioner files'
+`port_dims` and the kernel files' named functions, this is the one module
+of the harness that imports the measured package.
 
 The wrappers keep references to what the timed path already made (the
 detector's and the text detector's outputs, the one download of each
@@ -12,11 +13,13 @@ are read from the download, which is on the host already."""
 
 from __future__ import annotations
 
+import importlib
 import time
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
+
+from benchmark.harness import manifest as mf
 
 
 def pipeline_config(cfg: Dict):
@@ -34,63 +37,13 @@ def pipeline_config(cfg: Dict):
                           ocr=OcrConfig(**tup(p.pop("ocr"))), **p)
 
 
-def captioner_network(cfg: Dict):
-    """(backend, dims, make_module, keep_f32) of the configuration's
-    captioner, from the reference's copy of its modules."""
-    backend = cfg["pipeline"]["captioner"]["backend"]
-    raw = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg["captioner_dims"].items()}
-    if backend == "florence":
-        from benchmark.reference import florence2 as net
-
-        dims = net.FlorenceDims(**raw)
-        return backend, dims, lambda: net.Florence2(dims), ("language_model",
-                                                            "language_model.shared")
-    if backend == "blip2":
-        from benchmark.reference import blip2 as net
-
-        dims = net.Blip2Dims(**raw)
-        return backend, dims, lambda: net.Blip2(dims), ("language_model.embed_tokens",)
-    raise ValueError(f"captioner backend {backend!r} has no reference")
-
-
-def port_dims(backend: str, cfg: Dict):
-    """The measured package's own dims object for the configuration."""
-    raw = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg["captioner_dims"].items()}
-    if backend == "florence":
-        from omniparser_tpu_torch.models.florence2 import FlorenceDims
-
-        return FlorenceDims(**raw)
-    from omniparser_tpu_torch.models.blip2 import Blip2Dims
-
-    return Blip2Dims(**raw)
-
-
-def build(cfg: Dict, device, captioner_state: Dict, backend: str):
+def build(cfg: Dict, device, captioner_state: Dict, captioner):
+    """The pipeline, with the captioner's dims from its own file
+    (benchmark/captioners/<backend>.py)."""
     from omniparser_tpu_torch.pipeline import SOMPipeline
 
     return SOMPipeline(pipeline_config(cfg), device, captioner_state=captioner_state,
-                       captioner_dims=port_dims(backend, cfg))
-
-
-def warm(pipe, shape, backend: str, sample_images: List[np.ndarray]) -> None:
-    """Every shape this cell's traffic drives: the kernels' first launches
-    (they build here on a checkout's first run), each caption decode bucket
-    that parse_batch can use, and real screenshots through parse_batch (or,
-    for a captioner outside the fused step, one parse with captions)."""
-    if backend == "florence":
-        k = pipe.config.captioner.batch_size
-        buckets = []
-        b = 8
-        while b <= pipe._DECODE_CHUNK:
-            buckets.append(b)
-            b *= 2
-        pipe.warmup(shapes=(tuple(shape),), cap_buckets=tuple(buckets) + (k,))
-        pipe.parse_batch(sample_images)
-    else:
-        pipe.warmup(shapes=(tuple(shape),), cap_buckets=())
-        pipe.parse_batch(sample_images[:1])
-    if pipe.device.type == "cuda":
-        torch.cuda.synchronize(pipe.device)
+                       captioner_dims=captioner.port_dims(cfg))
 
 
 class Recorder:
@@ -106,8 +59,11 @@ class Recorder:
         self.counts: List[Dict] = []  # per image, every batch
         self.caption_events = []      # (host end, start event, end event), traced runs
         self.caption_host = []        # (t0, t1) host spans of generate calls
-        self.kernel_calls: Dict[str, List] = {"nms_keep": [], "crop_resize": []}
+        # kernel name -> what the traced run kept of each call
+        # (benchmark/kernels/<name>.py)
+        self.kernel_calls: Dict[str, List] = {}
         self._hooks = []
+        self._restore = []
         self._wrap()
 
     # ------------------------------------------------------------ #
@@ -171,8 +127,6 @@ class Recorder:
         cap.generate = _generate
 
         if self.traced:
-            from omniparser_tpu_torch.ops import hopper_crop, nms
-
             dispatch_det = pipe.ocr.dispatch_det
 
             def _dispatch_det(padded, hw):
@@ -190,30 +144,28 @@ class Recorder:
 
             pipe.ocr.dispatch_det = _dispatch_det
 
-            nms_keep = nms.nms_keep
+            for name, k in mf.kernels().items():
+                self._wrap_kernel(name, k)
 
-            def _nms_keep(sorted_boxes, sorted_valid, thr):
-                self.kernel_calls["nms_keep"].append(sorted_valid)
-                return nms_keep(sorted_boxes, sorted_valid, thr)
+    def _wrap_kernel(self, name: str, k) -> None:
+        """Wrap the port's function that launches the kernel: each call
+        keeps what `k.keep` takes of it, then runs as it did."""
+        mod = importlib.import_module(k.MODULE)
+        launch = getattr(mod, k.ATTR)
+        calls = self.kernel_calls.setdefault(name, [])
 
-            nms.nms_keep = _nms_keep
-            crop = hopper_crop.crop_resize
+        def wrapped(*args, **kwargs):
+            calls.append(k.keep(*args, **kwargs))
+            return launch(*args, **kwargs)
 
-            def _crop(padded, hw, boxes, out_size=64, grid="resize"):
-                self.kernel_calls["crop_resize"].append((boxes, out_size, grid,
-                                                         tuple(int(v) for v in hw)))
-                return crop(padded, hw, boxes, out_size, grid)
-
-            hopper_crop.crop_resize = _crop
-            self._restore = (nms, nms_keep, hopper_crop, crop)
+        setattr(mod, k.ATTR, wrapped)
+        self._restore.append((mod, k.ATTR, launch))
 
     def close(self) -> None:
         for h in self._hooks:
             h.remove()
-        if self.traced:
-            nms, nms_keep, hopper_crop, crop = self._restore
-            nms.nms_keep = nms_keep
-            hopper_crop.crop_resize = crop
+        for mod, attr, launch in self._restore:
+            setattr(mod, attr, launch)
 
     def caption_ms(self, until: float) -> Optional[float]:
         """Device milliseconds between the events of the generate calls that

@@ -27,6 +27,8 @@ Numbers (each the worst over the sample; `Judge.check` names them):
   merge_mismatch  merge decisions (K2) that differ from the plain merge
                   over the program's own boxes and validity (exact: 0)
   crop_gap        largest gap of a caption crop's pixel (K3)
+  (the captioner's numbers below are read by its own file,
+  benchmark/captioners/<backend>.py, through `readings`)
   caption_score_rms_gap  Florence-2: root-mean-square over the captions of
                   the batched decode (the first K of each screenshot) of the
                   gap between a caption's score (the mean log-probability of
@@ -55,20 +57,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from benchmark.harness import manifest as mf
 from benchmark.reference import components as cc
 from benchmark.reference import convert, lowp, ops, orbax_read
 from benchmark.reference.ocr import TextDetector, TextRecognizer
 from benchmark.reference.yolov8 import YOLOv8, decode_predictions
-
-# the captioners' preprocessing and prompts (the published processors')
-FLORENCE_MEAN = (0.485, 0.456, 0.406)
-FLORENCE_STD = (0.229, 0.224, 0.225)
-FLORENCE_PROMPT = "What does the image describe?"
-BLIP2_MEAN = (0.48145466, 0.4578275, 0.40821073)
-BLIP2_STD = (0.26862954, 0.26130258, 0.27577711)
-BLIP2_PROMPT = "The image shows"
 
 CAPTION_BLOCK = 16  # captions per reference forward
 
@@ -119,8 +113,7 @@ class Networks:
     """The reference's networks in float32 (or, for the control, with
     float8 products)."""
 
-    def __init__(self, cfg: Dict, captioner_state: Dict, backend: str, dims, device,
-                 trees: Dict[str, str]):
+    def __init__(self, cfg: Dict, captioner_state: Dict, device, trees: Dict[str, str]):
         self.device = device
         det = cfg["pipeline"]["detector"]
         ocr = cfg["pipeline"]["ocr"]
@@ -132,17 +125,11 @@ class Networks:
         self.textdet = _load(tdet, convert.convert_variables(_sub(ocr_flat, "det"), tdet), device)
         trec = TextRecognizer(seq_len=ocr.get("rec_max_width", 480) // 4)
         self.textrec = _load(trec, convert.convert_variables(_sub(ocr_flat, "rec"), trec), device)
-        self.backend, self.dims = backend, dims
-        if backend == "florence":
-            from benchmark.reference.florence2 import Florence2
-
-            with torch.device("meta"):
-                cap = Florence2(dims)
-        else:
-            from benchmark.reference.blip2 import Blip2
-
-            with torch.device("meta"):
-                cap = Blip2(dims)
+        # the captioner's own file, benchmark/captioners/<backend>.py
+        self.caption = mf.captioner(cfg)
+        self.dims, make_module, _ = self.caption.reference(cfg)
+        with torch.device("meta"):
+            cap = make_module()
         cap = cap.to_empty(device=device)
         with torch.no_grad():
             for name, t in list(cap.state_dict().items()):
@@ -218,7 +205,7 @@ class Judge:
             boxes = torch.from_numpy(np.ascontiguousarray(out["ocr_boxes"][valid],
                                                           np.float32)).to(self.dev)
             rec_hw = (self.ocr.get("rec_height", 32), self.ocr.get("rec_max_width", 480))
-            lines = ops.crop_resize_plain(padded, hw, boxes, rec_hw, grid="line")
+            lines = ops.bilinear_crops_plain(padded, hw, boxes, rec_hw, grid="line")
             xin = (lines / 255.0).permute(0, 3, 1, 2)
             if lower is not None:
                 got = lower.textrec(xin)
@@ -235,18 +222,15 @@ class Judge:
         if segs:
             boxes = torch.from_numpy(np.concatenate([s["boxes"] for s in segs])).to(self.dev)
             cs = self.cap.get("crop_size", 64)
-            ref_crops = ops.crop_resize_plain(padded, hw, boxes.contiguous(), cs)
+            ref_crops = ops.bilinear_crops_plain(padded, hw, boxes.contiguous(), cs)
             got = (lowp.bf16_round(ref_crops) if lower is not None
                    else torch.cat([s["crops"].float() for s in segs]))
             r["crop_gap"] = float((got - ref_crops).abs().max())
             tokens = torch.from_numpy(np.concatenate([s["tokens"] for s in segs])).to(self.dev)
             scores = np.concatenate([s["scores"] for s in segs])
-            if self.nets.backend == "florence":
-                overflow = np.concatenate([np.full(len(s["tokens"]), s["overflow"]) for s in segs])
-                r.update(self.florence_readings(ref_crops, tokens.long(), scores, overflow, lower))
-            else:
-                r["caption_score_gap"] = self.blip2_score_gap(ref_crops, tokens.long(),
-                                                              scores, lower)
+            overflow = np.concatenate([np.full(len(s["tokens"]), s["overflow"]) for s in segs])
+            r.update(self.nets.caption.readings(self, ref_crops, tokens.long(), scores,
+                                                overflow, lower))
         if lower is None:
             r["results_mismatch"] = float(self.results_mismatch(sample))
         return r
@@ -276,10 +260,7 @@ class Judge:
                if t not in (d.pad_token_id, d.eos_token_id, d.bos_token_id) and t >= 10]
         chars = ((i - 10) % 0x4000 for i in ids)
         text = "".join(chr(c) if 32 <= c < 0xD800 else "?" for c in chars).strip()
-        floor = self.cap.get("min_logp")
-        if self.nets.backend == "florence" and floor is not None and logp < floor:
-            return "image icon"
-        return text
+        return self.nets.caption.served_text(self.cfg, text, logp)
 
     def results_mismatch(self, sample) -> int:
         """The elements served to the request against those rebuilt from its
@@ -326,8 +307,8 @@ class Judge:
         sorted_scores, order = torch.sort(torch.where(top_valid, top_scores, neg_inf),
                                           descending=True, stable=True)
         sboxes = top_boxes[order].contiguous()
-        kept = ops.nms_keep_plain(sboxes, top_valid[order].contiguous(),
-                                  self.det.get("nms_iou_threshold", 0.1))
+        kept = ops.greedy_nms_plain(sboxes, top_valid[order].contiguous(),
+                                    self.det.get("nms_iou_threshold", 0.1))
         kb = sboxes[kept][:max_det]
         h, w = hw
         wh = torch.tensor([w, h, w, h], dtype=torch.float32, device=self.dev)
@@ -355,109 +336,6 @@ class Judge:
         names = ("icon_keep", "ocr_keep", "absorb", "icon_suppressed")
         return sum(int((w.cpu().numpy() != out[n].astype(bool)).sum())
                    for w, n in zip(want, names))
-
-    # --------------------------- captioners ------------------------- #
-    def florence_readings(self, crops, tokens, scores, overflow, lower) -> Dict[str, float]:
-        """The captions' score gaps, root-mean-square over the batched
-        decode's captions and over the overflow decode's apart: the served
-        mean log-probability of the greedy tokens (up to and including the
-        first end token, as the decode counts it) against the reference's,
-        teacher-forced along the same tokens."""
-        d = self.nets.dims
-        mean = torch.tensor(FLORENCE_MEAN, device=self.dev)
-        std = torch.tensor(FLORENCE_STD, device=self.dev)
-        prompt = torch.tensor(fallback_ids(FLORENCE_PROMPT, True), device=self.dev)
-        gaps = []
-        for s in range(0, crops.shape[0], CAPTION_BLOCK):
-            c = crops[s:s + CAPTION_BLOCK]
-            tok = tokens[s:s + CAPTION_BLOCK]
-            n, t = tok.shape
-            pix = (c / 255.0 - mean) / std
-            pr = prompt[None].expand(n, -1)
-            dec = torch.cat([torch.full((n, 1), d.decoder_start_token_id, device=self.dev,
-                                        dtype=torch.long), tok[:, :-1]], dim=1)
-            is_eos = tok == d.eos_token_id
-            first = torch.where(is_eos.any(1), is_eos.int().argmax(1), torch.full_like(
-                is_eos[:, 0], t - 1, dtype=torch.long))
-            counted = (torch.arange(t, device=self.dev)[None, :] <= first[:, None]).float()
-
-            def score(net):
-                lp = torch.log_softmax(net(pix, pr, dec).float(), dim=-1)
-                picked = lp.gather(-1, tok[..., None])[..., 0]
-                return ((picked * counted).sum(1) / counted.sum(1)).cpu().numpy()
-
-            ref = score(self.nets.captioner)
-            got = score(lower.captioner) if lower is not None else scores[s:s + CAPTION_BLOCK]
-            gaps.append(got - ref)
-        gaps = np.concatenate(gaps)
-        r = {}
-        for name, sel in (("caption_score_rms_gap", ~overflow),
-                          ("caption_overflow_score_rms_gap", overflow)):
-            if sel.any():
-                r[name] = float(np.sqrt(np.mean(gaps[sel] ** 2)))
-        return r
-
-    def blip2_logp(self, net, crops, tokens) -> torch.Tensor:
-        """log-probabilities [N, T, V] of each generated position, teacher-
-        forced over (queries ++ prompt ++ tokens)."""
-        d = self.nets.dims
-        mean = torch.tensor(BLIP2_MEAN, device=self.dev)[:, None, None]
-        std = torch.tensor(BLIP2_STD, device=self.dev)[:, None, None]
-        x = F.interpolate(crops.permute(0, 3, 1, 2), size=(d.image_size, d.image_size),
-                          mode="bilinear", align_corners=False, antialias=True)
-        pix = (x / 255.0 - mean) / std
-        n, t = tokens.shape
-        prompt = torch.tensor([d.bos_token_id] + fallback_ids(BLIP2_PROMPT, False),
-                              device=self.dev)
-        lm = net.language_model
-        q = net.language_projection(net.qformer(net.vision_model(pix)))
-        ids = torch.cat([prompt[None].expand(n, -1), tokens[:, :-1]], dim=1)
-        emb = torch.cat([q, lm.embed_tokens(ids).float()], dim=1)
-        length = emb.shape[1]
-        pos = lm.embed_positions(torch.arange(length, device=self.dev) + 2)
-        h = emb + pos[None]
-        mask = (torch.arange(length, device=self.dev)[None, :]
-                <= torch.arange(length, device=self.dev)[:, None])[None, None]
-        hd = d.lm_width // d.lm_heads
-        for i in range(d.lm_layers):
-            cache = [torch.zeros((n, d.lm_heads, length, hd), device=self.dev)
-                     for _ in range(2)]
-            h = getattr(lm, f"layer{i}")(h, mask, cache, 0)
-        h = F.layer_norm(h, lm.final_layer_norm.normalized_shape, lm.final_layer_norm.weight,
-                         lm.final_layer_norm.bias, lm.final_layer_norm.eps)
-        prefix = d.num_query_tokens + prompt.shape[0]
-        logits = h[:, prefix - 1:prefix - 1 + t] @ lm.embed_tokens.weight.float().T
-        return torch.log_softmax(logits, dim=-1)
-
-    def blip2_score_gap(self, crops, tokens, scores, lower) -> float:
-        """Largest gap between a served beam's length-normalised score and
-        the reference's score of the same tokens: the log-probabilities of
-        every generated token up to and including the first end token (a
-        pad id generated before it is a token like any other), over the
-        beam's length as the configuration's decode counts it, its tokens
-        that are not the pad id plus the prompt's."""
-        d = self.nets.dims
-        p = 1 + len(fallback_ids(BLIP2_PROMPT, False))
-        worst = 0.0
-        for s in range(0, crops.shape[0], CAPTION_BLOCK):
-            c, tok = crops[s:s + CAPTION_BLOCK], tokens[s:s + CAPTION_BLOCK]
-            t = tok.shape[1]
-            length = (tok != d.pad_token_id).sum(1).float() + p
-            is_eos = tok == d.eos_token_id
-            first = torch.where(is_eos.any(1), is_eos.int().argmax(1), torch.full_like(
-                is_eos[:, 0], t - 1, dtype=torch.long))
-            counted = torch.arange(t, device=self.dev)[None, :] <= first[:, None]
-
-            def score(net):
-                lp = self.blip2_logp(net, c, tok)
-                picked = lp.gather(-1, tok[..., None])[..., 0]
-                return (torch.where(counted, picked, torch.zeros_like(picked)).sum(1)
-                        / length).cpu().numpy()
-
-            ref = score(self.nets.captioner)
-            got = score(lower.captioner) if lower is not None else scores[s:s + CAPTION_BLOCK]
-            worst = max(worst, float(np.abs(got - ref).max()))
-        return worst
 
     # ------------------------------------------------------------ #
     def readings(self, samples: List[Dict], lower: Optional[Networks] = None

@@ -188,7 +188,7 @@ def _out_hw(out_size) -> Tuple[int, int]:
     return (out_size, out_size) if isinstance(out_size, int) else tuple(out_size)
 
 
-def crop_resize_plain(padded_u8, orig_hw, boxes_norm, out_size=64, grid: str = "resize"):
+def bilinear_crops_plain(padded_u8, orig_hw, boxes_norm, out_size=64, grid: str = "resize"):
     """Plain PyTorch crop-gather: N normalised-xyxy boxes -> N
     [out_h,out_w,3] float32 patches in [0,255].  Integer crop bounds by
     truncation, half-pixel-centre bilinear sampling, edge clamp inside the
@@ -249,7 +249,7 @@ def plain_pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / torch.where(union == 0, one, union), zero)
 
 
-def nms_keep_plain(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
+def greedy_nms_plain(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
                    iou_threshold: float) -> torch.Tensor:
     """Plain PyTorch greedy NMS keep mask over score-sorted boxes: if box i
     survives, every later box j with IoU(i, j) > threshold is dropped.

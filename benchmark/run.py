@@ -12,7 +12,9 @@ cell's end-to-end metrics, with --trace 1 its per-layer metrics, read by
 benchmark/metrics/<name>.py from a traced run.
 
 Everything that belongs to a cell is found by name from BENCHMARK.json:
-configs/, traffic/, generators/, metrics/, flops/.  --device cpu with --tiny
+configs/, traffic/, generators/, metrics/, flops/, and the configuration's
+captioner and every hand-written kernel from files of their own:
+captioners/<backend>.py, kernels/<kernel>.py.  --device cpu with --tiny
 FILE rehearses a cell at small sizes on the CPU (tests only).
 """
 
@@ -130,13 +132,14 @@ def main(argv=None) -> int:
     images = gen.make_pool(traffic, args.seed)
     work = gen.work(traffic, args.seed)
     laps.append(("screens", time.perf_counter()))
-    backend, dims, make_cap, keep_f32 = port.captioner_network(cfg)
+    captioner = mf.captioner(cfg)  # benchmark/captioners/<backend>.py
+    _, make_cap, keep_f32 = captioner.reference(cfg)
     cap_dtype = getattr(torch, cfg["pipeline"]["captioner"].get("dtype", "bfloat16"))
     cap_state = seeded.draw_state(make_cap, args.seed, dev, cap_dtype, keep_f32)
     if on_card:
         torch.cuda.synchronize(dev)
     laps.append(("captioner_draw", time.perf_counter()))
-    pipe = port.build(cfg, dev, cap_state, backend)
+    pipe = port.build(cfg, dev, cap_state, captioner)
     laps.append(("pipeline_build", time.perf_counter()))
     if args.fault:
         from benchmark.harness import faults
@@ -144,8 +147,8 @@ def main(argv=None) -> int:
         faults.plant(args.fault, pipe)
     k = int(cfg["pipeline"]["captioner"].get("batch_size", 128))
     heavy = sorted(range(len(work)), key=lambda i: -work[i])
-    port.warm(pipe, traffic["screen"], backend,
-              [images[i] for i in heavy[:int(cfg["pipeline"].get("max_batch_size", 8))]])
+    captioner.warm(pipe, traffic["screen"],
+                   [images[i] for i in heavy[:int(cfg["pipeline"].get("max_batch_size", 8))]])
     if on_card:
         torch.cuda.synchronize(dev)
     laps.append(("warm_up", time.perf_counter()))
@@ -156,7 +159,14 @@ def main(argv=None) -> int:
     server = traffic.get("server", {})
     win = Window(pipe, rec, images, int(traffic["clients"]), orders, sampled,
                  int(server.get("max_batch", 8)), float(server.get("batch_window_ms", 5.0)))
-    setup_s = time.perf_counter() - T_START
+    # What set-up made (screens, weights, the program and its imports) goes
+    # to the collector's permanent generation, so that a full collection in
+    # the window walks only what the window makes: unfrozen, each run paid one
+    # pause of 0.1 to 0.3 s there, at a point that differed from run to run.
+    gc.collect()
+    gc.freeze()
+    laps.append(("window_prep", time.perf_counter()))
+    setup_s = laps[-1][1] - T_START
     prev = T_START
     for name, t in laps:
         print(f"setup {name} {t - prev:.3f} s", file=sys.stderr)
@@ -174,6 +184,7 @@ def main(argv=None) -> int:
             sl.update(trace.profile_slice(dev, args.seconds - trace_len, trace_len, t0))
 
     w = win.run(args.seconds, during)
+    gc.unfreeze()
     cut = w["t0"] + args.seconds - trace_len if sl else w["t1"]
     rec.close()
     peak = torch.cuda.max_memory_allocated(dev) if on_card else None
@@ -211,8 +222,7 @@ def main(argv=None) -> int:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
 
     # --------------------- the comparison, after the window --------------------- #
-    fused = backend == "florence" and cfg["pipeline"]["captioner"].get("split_decode", True)
-    samples = assemble(win.captured, fused, k, pipe._DECODE_CHUNK)
+    samples = assemble(win.captured, captioner.fused(cfg), k, pipe._DECODE_CHUNK)
     missing = sorted(set(sampled.values()) - {s["key"] for s in samples})
     del win, rec, pipe
     gc.collect()
@@ -220,7 +230,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     from benchmark.reference.judge import Judge, Networks
 
-    nets = Networks(cfg, cap_state, backend, dims, dev, {
+    nets = Networks(cfg, cap_state, dev, {
         name: os.path.join(ROOT, path) for name, path in cfg["trees"].items()})
     judge = Judge(cfg, nets)
     def passes(checks):
@@ -275,23 +285,20 @@ def reduce_run(cfg, win, w, rec, red, cut):
         if c["batch"] < len(batches):
             flops += per_shot + per_line * c["lines"] + per_cap * c["captions"]
     done = [r for r in win.requests if r["error"] is None and r["end"] <= cut]
-    kernel_work = {}
-    nms = mf.load_module("flops", "nms_keep.py")
-    kernel_work["nms_keep"] = [nms.work(int(v.numel()), int(v.sum()))
-                               for v in rec.kernel_calls["nms_keep"]]
-    crop = mf.load_module("flops", "crop_resize.py")
-    kernel_work["crop_resize"] = [
-        crop.work(b.cpu().numpy(), (o, o) if isinstance(o, int) else tuple(o), hw)
-        for b, o, _, hw in rec.kernel_calls["crop_resize"]]
+    # each kernel of benchmark/kernels/: the work of every call the window
+    # made, and its device time and launches in the traced slice
+    kernels = mf.kernels()
+    kernel_work = {name: [k.work(c) for c in rec.kernel_calls.get(name, [])]
+                   for name, k in kernels.items()}
     tr = None
     if red is not None:
-        kernels = {}
-        for name, mod in (("nms_keep", nms), ("crop_resize", crop)):
+        device = {}
+        for name, k in kernels.items():
             secs = sum(v[0] for n, v in red["by_name"].items()
-                       if any(s in n for s in mod.KERNELS))
-            count = sum(v[1] for n, v in red["by_name"].items() if mod.COUNT_BY in n)
-            kernels[name] = {"seconds": secs, "count": count}
-        tr = {"busy_s": red["busy_s"], "window_s": red["window_s"], "kernels": kernels}
+                       if any(s in n for s in k.KERNELS))
+            count = sum(v[1] for n, v in red["by_name"].items() if k.COUNT_BY in n)
+            device[name] = {"seconds": secs, "count": count}
+        tr = {"busy_s": red["busy_s"], "window_s": red["window_s"], "kernels": device}
     return {"requests": done, "batches": batches, "window_s": (batches[-1]["t1"] - w["t0"]
                                                                if batches else 0.0),
             "shots": sum(b["size"] for b in batches),

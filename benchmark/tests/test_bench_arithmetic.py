@@ -88,6 +88,29 @@ def test_the_rate_covers_every_request_and_the_whole_window():
     assert threading.active_count() >= 1
 
 
+def test_the_first_batch_gathers_every_client_released_at_the_start(monkeypatch):
+    """Clients are released together at the window's start: with 16 of them
+    and batches of 8, the first two batches are full, however slowly the
+    host starts a thread (here 2 ms each, well over the batcher's 5 ms for
+    the first eight)."""
+    from benchmark.harness.loop import Window
+
+    start = threading.Thread.start
+
+    def slow_start(self):
+        start(self)
+        time.sleep(0.002)
+
+    monkeypatch.setattr(threading.Thread, "start", slow_start)
+    pipe = _SlowPipe(0.2)
+    images = [np.zeros((4, 4, 3), np.uint8) for _ in range(4)]
+    win = Window(pipe, _NoRecorder(), images, clients=16, orders=[[0, 1, 2, 3]] * 16,
+                 sampled={}, max_batch=8, batch_window_ms=5.0)
+    w = win.run(0.3)
+    assert [b["size"] for b in win.batches[:2]] == [8, 8]
+    assert min(r["submit"] for r in win.requests) >= w["t0"]
+
+
 def _count(fn):
     with FlopCounterMode(display=False) as m, torch.no_grad():
         fn()
